@@ -1,0 +1,454 @@
+"""Drive the PyTorch/CUDA port on one GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (any failed check or exception exits nonzero):
+
+1. card and setup: the card's name and power limit, TF32 off, the
+   kernels built from ``src/repro_torch/csrc``;
+2. each Hopper kernel against its plain PyTorch version on the card, at
+   the test shapes and at the shapes of phases 4 and 5 (with a real
+   round's hashes), with its time, the plain version's time, the PyTorch
+   library call's time where one exists, and the least time the card could
+   take (``bound_ms``);
+3. two SAFL rounds of bert_100m SMOKE on the card (kernels) against the
+   same rounds on the CPU (plain versions), from the same weights, once
+   with count-sketch and once with SRHT;
+4. the main path: three SAFL rounds of bert_100m at full width and depth,
+   independent-hash count-sketch through the count-sketch kernel;
+5. three SAFL rounds of the lm25m model with SRHT through the FWHT kernel
+   (sk and desk) and the count-sketch kernel (the desk's scatter).
+
+Phases 4 and 5 end with a breakdown of one round's time by step.
+
+The launch counts of the kernels are set to 0 just before phases 4 and 5
+and read just after each; the ``kernels`` line has one entry per kernel
+and path.  The last lines are a ``{"kernels": [...]}``
+JSON line, the card's ``nvidia-smi`` line and ``{"ok": true, "device":
+...}``.  Needs one CUDA card; exits nonzero without one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch import prng  # noqa: E402
+from repro_torch.configs import bert_100m  # noqa: E402
+from repro_torch.core import safl as safl_module  # noqa: E402
+from repro_torch.core.adaptive import AdaConfig  # noqa: E402
+from repro_torch.core.packed import (derive_round_params,  # noqa: E402
+                                     make_packing_plan)
+from repro_torch.core.safl import (SAFLConfig, init_safl,  # noqa: E402
+                                   safl_round, uplink_bits_per_round)
+from repro_torch.core.sketch import SketchConfig  # noqa: E402
+from repro_torch.data.synthetic import BigramLMData, LMDataConfig  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import countsketch as cs  # noqa: E402
+from repro_torch.kernels import fwht as fw  # noqa: E402
+from repro_torch.launch.driver import run_scan  # noqa: E402
+from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.models.model import (init_params, loss_fn,  # noqa: E402
+                                     param_shapes)
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+G_CLIENTS = 5               # clients per round (the paper's section 5 setup)
+
+# examples/train_lm.py's default model, the SRHT phase's model: bert_100m's
+# stacked leaves exceed the 16M-element limit of the FWHT kernel path
+LM25M = ModelConfig(name="lm25m", arch_type="dense", num_layers=6,
+                    d_model=384, num_heads=6, num_kv_heads=6, d_ff=1536,
+                    vocab_size=4096)
+
+KERNEL_KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+
+# port vs port across devices: CUDA and CPU float32 matmuls sum in other
+# orders (~1e-6 relative), and AMSGrad's normalized step (|step| <= lr *
+# 3.2 on round one) amplifies sign-level noise in near-zero sketch slots.
+TRAJ_ATOL, TRAJ_RTOL = 2e-3, 1e-3
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, warmup: int = 2, iters: int = 5) -> float:
+    """Mean device time of ``fn()`` in ms over ``iters`` runs after warm-up,
+    between CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def cs_tolerance(x: torch.Tensor, h: torch.Tensor, b: int) -> float:
+    """Two float32 summation orders of the same terms differ by at most
+    about k * 2**-24 of the slot's absolute sum for k terms; 1e-5 of the
+    largest absolute slot sum covers k <= 160."""
+    return 1e-5 * float(cs.countsketch_clients_plain(x.abs(), h, b).max()) + 1e-30
+
+
+def _errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, max abs error over max |want|)."""
+    if not got.numel():
+        return 0.0, 0.0
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1e-30)
+
+
+def check_countsketch(x: torch.Tensor, h: torch.Tensor, b: int) -> float:
+    got = cs.countsketch_clients_cuda(x, h, b)
+    want = cs.countsketch_clients_plain(x, h, b)
+    torch.cuda.synchronize()
+    err, rel = _errors(got, want)
+    tol = cs_tolerance(x, h, b)
+    print(f"countsketch G={x.shape[0]} n={x.shape[1]} b={b}: max_abs_err "
+          f"{err:.3e} max_rel_err {rel:.3e} (tolerance: abs {tol:.3e})")
+    check(err <= tol, f"countsketch G={x.shape[0]} n={x.shape[1]} b={b}: "
+          f"max abs err {err:.3e} > tol {tol:.3e}")
+    return err
+
+
+def check_fwht(x: torch.Tensor) -> float:
+    got = fw.fwht_rows_cuda(x)
+    want = fw.fwht_plain(x)
+    torch.cuda.synchronize()
+    err, rel = _errors(got, want)
+    # the kernel runs the plain version's additions in the same order
+    tol = 1e-6
+    print(f"fwht {tuple(x.shape)}: max_abs_err {err:.3e} max_rel_err "
+          f"{rel:.3e} (tolerance: rel {tol:.0e})")
+    check(rel <= tol, f"fwht {tuple(x.shape)}: max rel err {rel:.3e} > {tol:.0e}")
+    return err
+
+
+def phase_kernels(gen: torch.Generator) -> list[dict]:
+    dev = "cuda"
+    print("== phase 2: kernels against their plain versions ==")
+    for g, n, b in ([(1, n, b) for n in (17, 1000, 1024, 5000)
+                     for b in (8, 128, 300)]
+                    + [(1, 3000, 2049), (1, 3000, 4096), (1, 100, 16),
+                       (5, 2000, 64), (9, 1500, 3000)]):
+        x = torch.randn((g, n), generator=gen, device=dev)
+        h = torch.randint(0, b, (n,), generator=gen, device=dev)
+        check_countsketch(x, h, b)
+    for shape in ((1, 8), (9, 4096), (20, 512), (1, 32768), (1, 1 << 24)):
+        check_fwht(torch.randn(shape, generator=gen, device=dev))
+
+    # B1 at the main path's shape, with a real round's hash
+    plan = make_packing_plan(MAIN_SKETCH, param_shape_tree(bert_100m.CONFIG))
+    rp = derive_round_params(plan, prng.fold_in(prng.key(0), 0), dev)
+    h, b = rp["h"], plan.b_total
+    g = G_CLIENTS
+    x = torch.randn((g, plan.d_total), generator=gen, device=dev) * 1e-3
+    err = check_countsketch(x, h, b)
+    ms = cuda_ms(lambda: cs.countsketch_clients_cuda(x, h, b))
+    perm, off = cs.bucket(h, b)
+    out = torch.empty((g, b), device=dev)
+    seg_ms = cuda_ms(lambda: cs.segsum(x, perm, off, out))
+    plain_ms = cuda_ms(lambda: cs.countsketch_clients_plain(x, h, b))
+    zeros = torch.zeros((g, b), device=dev)
+    lib_ms = cuda_ms(lambda: zeros.index_add_(1, h, x))
+    nb = x.numel() * 4 + h.numel() * h.element_size() + g * b * 4
+    bms, by = bound_ms(nb, x.numel())
+    print(f"countsketch main path G={g} n={plan.d_total} b={b}: "
+          f"ms {ms:.3f} (bucketing + segment-sum kernel; kernel "
+          f"alone {seg_ms:.3f}); plain_ms {plain_ms:.3f}; library_ms "
+          f"(index_add_) {lib_ms:.3f}; bound_ms {bms:.3f} ({by})")
+    entries = [dict(name="countsketch_clients", route="cuda",
+                    source="src/repro_torch/csrc/countsketch.cu",
+                    replaces="src/repro/kernels/countsketch.py:45",
+                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)]
+    del x, h, rp, perm, off, out, zeros
+
+    # the SRHT phase (the lm25m plan) with a real round's operator: B1 as
+    # the desk scatter of each live op's b payload slots into n2 slots, B2
+    # on each padded-length group's rows, (G * L, n2) in sk, (L, n2) in desk
+    plan = make_packing_plan(SRHT_SKETCH, param_shape_tree(LM25M))
+    rp = derive_round_params(plan, prng.fold_in(prng.key(0), 0), dev)
+    live = [op for op in plan.ops if not op.raw]
+    err = max(check_countsketch(torch.randn((1, op.b), generator=gen, device=dev),
+                                rp["srht"][op.index][1], op.n2) for op in live)
+    op = max(live, key=lambda o: (o.n2, o.b))
+    x = torch.randn((1, op.b), generator=gen, device=dev)
+    idx = rp["srht"][op.index][1]
+    ms = cuda_ms(lambda: cs.countsketch_clients_cuda(x, idx, op.n2))
+    plain_ms = cuda_ms(lambda: cs.countsketch_clients_plain(x, idx, op.n2))
+    zeros = torch.zeros(op.n2, device=dev)
+    lib_ms = cuda_ms(lambda: zeros.index_add_(0, idx, x[0]))
+    bms, by = bound_ms(x.numel() * 4 + idx.numel() * idx.element_size()
+                       + op.n2 * 4, x.numel())
+    print(f"countsketch SRHT desk scatter G=1 n={op.b} b={op.n2}: ms {ms:.4f}; "
+          f"plain_ms {plain_ms:.4f}; library_ms (index_add_) {lib_ms:.4f}; "
+          f"bound_ms {bms:.4f} ({by})")
+    entries.append(dict(name="countsketch", route="cuda",
+                        source="src/repro_torch/csrc/countsketch.cu",
+                        replaces="src/repro/kernels/countsketch.py:45",
+                        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=lib_ms))
+    del rp, x, zeros
+
+    groups: dict[int, int] = {}
+    for op in live:
+        groups[op.n2] = groups.get(op.n2, 0) + 1
+    err = 0.0
+    for n2, rows in sorted(groups.items()):     # the last, largest, is timed
+        for r in (rows, G_CLIENTS * rows):
+            err = max(err, check_fwht(torch.randn((r, n2), generator=gen,
+                                                  device=dev)))
+    x = torch.randn((G_CLIENTS * rows, n2), generator=gen, device=dev)
+    ms = cuda_ms(lambda: fw.fwht_rows_cuda(x))
+    plain_ms = cuda_ms(lambda: fw.fwht_plain(x))
+    bms, by = bound_ms(2 * x.numel() * 4, x.numel() * math.log2(n2))
+    print(f"fwht SRHT sk group {tuple(x.shape)}: ms {ms:.4f}; plain_ms "
+          f"{plain_ms:.4f}; bound_ms {bms:.4f} ({by})")
+    entries.append(dict(name="fwht_rows", route="cuda",
+                        source="src/repro_torch/csrc/fwht.cu",
+                        replaces="src/repro/kernels/fwht.py:26", launches=0,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=None))
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# SAFL phases
+# ---------------------------------------------------------------------------
+
+MAIN_SKETCH = SketchConfig(kind="countsketch", ratio=0.02, min_b=64,
+                           cs_hash="independent", use_kernels=True)
+SRHT_SKETCH = SketchConfig(kind="srht", ratio=0.02, min_b=64, use_kernels=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Shape:
+    shape: tuple
+    dtype: torch.dtype = torch.float32
+
+
+def param_shape_tree(model: ModelConfig) -> dict:
+    return {k: _Shape(s) for k, s in param_shapes(model).items()}
+
+
+def safl_cfg(sketch: SketchConfig) -> SAFLConfig:
+    return SAFLConfig(sketch=sketch, server=AdaConfig(name="amsgrad", lr=0.01),
+                      client_lr=0.5, local_steps=2)
+
+
+def run_rounds(model: ModelConfig, sketch: SketchConfig, data: LMDataConfig,
+               device: str, rounds: int, per_round=None):
+    cfg = safl_cfg(sketch)
+    params = init_params(model, torch.Generator().manual_seed(0), device=device)
+    opt = init_safl(cfg, params)
+    sampler = BigramLMData(data).device_sampler(batch_per_client=8,
+                                                local_steps=2)
+    plan = make_packing_plan(cfg.sketch, params)
+    round_fn = functools.partial(safl_round, cfg,
+                                 lambda p, b: loss_fn(model, p, b), plan=plan)
+    bits = uplink_bits_per_round(cfg, params, cohort_size=data.num_clients)
+    return run_scan(round_fn, sampler, params, opt, rounds=rounds,
+                    key=prng.key(0), chunk_size=1, bits_per_round=bits,
+                    on_chunk=per_round)
+
+
+def phase_card_vs_cpu() -> None:
+    print("== phase 3: bert_100m SMOKE, card (kernels) against CPU (plain) ==")
+    data = LMDataConfig(vocab_size=256, seq_len=32, num_clients=G_CLIENTS,
+                        heterogeneity=0.3, alpha=0.02)
+    for sketch in (MAIN_SKETCH, SRHT_SKETCH):
+        sk = dataclasses.replace(sketch, ratio=0.05, min_b=16)
+        pg, og, hg = run_rounds(bert_100m.SMOKE, sk, data, "cuda", 2)
+        pc, oc, hc = run_rounds(bert_100m.SMOKE, sk, data, "cpu", 2)
+        print(f"{sk.kind}: loss card {hg['loss']} cpu {hc['loss']}")
+        check(np.allclose(hg["loss"], hc["loss"], rtol=1e-4, atol=1e-4),
+              f"SMOKE {sk.kind} losses differ between card and CPU")
+        worst = 0.0
+        for k in pc:
+            a, b = pg[k].cpu(), pc[k]
+            worst = max(worst, float((a - b).abs().max()))
+            check(torch.allclose(a, b, rtol=TRAJ_RTOL, atol=TRAJ_ATOL),
+                  f"SMOKE {sk.kind} params differ between card and CPU at {k}")
+        print(f"{sk.kind}: params max abs diff card vs cpu {worst:.3e} "
+              f"(tolerance atol {TRAJ_ATOL}, rtol {TRAJ_RTOL})")
+
+
+def phase_full(name: str, model: ModelConfig, sketch: SketchConfig,
+               counters: dict[str, build.LaunchCount]) -> dict[str, int]:
+    """Three rounds through ``run_scan``; every count in ``counters`` is
+    set to 0 just before and must grow in every round.  Returns the
+    counts after the run."""
+    data = LMDataConfig(vocab_size=4096, seq_len=128, num_clients=G_CLIENTS,
+                        heterogeneity=0.3, alpha=0.02)
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+
+    def per_round(t, params, state, hist):
+        torch.cuda.synchronize()
+        marks.append((t, time.perf_counter(),
+                      {k: c.n for k, c in counters.items()},
+                      float(hist["loss"][-1]), float(hist["uplink_bits"][-1])))
+
+    for c in counters.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    params, _, hist = run_rounds(model, sketch, data, "cuda", 3, per_round)
+    torch.cuda.synchronize()
+    launches = {k: c.n for k, c in counters.items()}
+    d = sum(p.numel() for p in params.values())
+    print(f"{name}: d = {d:,} parameters, launches in the run: {launches}")
+    prev_t, prev_n = None, {k: 0 for k in counters}
+    for t, tw, n, loss, bits in marks:
+        ms = "" if prev_t is None else f"  round ms {(tw - prev_t) * 1e3:.1f}"
+        print(f"{name} round {t - 1}: loss {loss:.5f}  uplink_bits {bits:.0f}  "
+              f"kernel launches {n}{ms}")
+        check(math.isfinite(loss), f"{name}: loss is not finite")
+        for k in counters:
+            check(n[k] >= prev_n[k] + 1, f"{name}: {k} launch count did not "
+                  f"grow in round {t - 1}")
+        prev_t, prev_n = tw, n
+    print(f"{name}: first round (with set-up) "
+          f"{(marks[0][1] - t0) * 1e3:.1f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for k, v in params.items():
+        check(bool(torch.isfinite(v).all()), f"{name}: param {k} not finite")
+    del params
+    round_breakdown(name, model, sketch, data)
+    return launches
+
+
+# the calls ``safl_round`` makes, timed one by one in ``round_breakdown``
+ROUND_STEPS = ("client_delta", "derive_round_params", "sk_packed_clients",
+               "desk_packed", "apply_update")
+
+
+def round_breakdown(name: str, model: ModelConfig, sketch: SketchConfig,
+                    data: LMDataConfig) -> None:
+    """Where one round's time goes: two more rounds through ``run_scan``,
+    with each call of the real ``safl_round`` to a step in ``ROUND_STEPS``
+    timed on the host clock, the device synchronised around it.  The
+    second round is printed; ``rest`` is what the steps leave of it
+    (sampling, stacking the deltas, the cohort mean, the driver)."""
+    times: dict[str, float] = {}
+    rounds: list[tuple[float, dict]] = []
+
+    def timed(step, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[step] = times.get(step, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    def per_round(t, params, state, hist):
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter(), dict(times)))
+        times.clear()
+
+    steps = {s: getattr(safl_module, s) for s in ROUND_STEPS}
+    for s, fn in steps.items():
+        setattr(safl_module, s, timed(s, fn))
+    try:
+        run_rounds(model, sketch, data, "cuda", 2, per_round)
+    finally:
+        for s, fn in steps.items():
+            setattr(safl_module, s, fn)
+    total = (rounds[1][0] - rounds[0][0]) * 1e3
+    parts = dict(rounds[1][1])
+    parts["rest"] = total - sum(parts.values())
+    print(f"{name} round breakdown (ms, round {total:.1f}): " + ", ".join(
+        f"{k} {v:.1f} ({100 * v / total:.0f}%)" for k, v in parts.items()))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    print("== phase 1: card and setup ==")
+    print(smi_line())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
+          f"{sorted(reports)}")
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  [{name}] {line.strip()}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    entries = phase_kernels(gen)
+    torch.cuda.empty_cache()
+    phase_card_vs_cpu()
+
+    print("== phase 4: main path, bert_100m full width, count-sketch ==")
+    n = phase_full("bert_100m", bert_100m.CONFIG, MAIN_SKETCH,
+                   {"countsketch": cs.LAUNCHES})
+    entries[0]["launches"] = n["countsketch"]
+    torch.cuda.empty_cache()
+    print("== phase 5: lm25m, SRHT ==")
+    n = phase_full("lm25m", LM25M, SRHT_SKETCH,
+                   {"countsketch": cs.LAUNCHES, "fwht": fw.LAUNCHES})
+    entries[1]["launches"] = n["countsketch"]
+    entries[2]["launches"] = n["fwht"]
+    for e in entries:
+        check(e["launches"] > 0, f"{e['name']} never launched on its path")
+        check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")
+
+    print(json.dumps({"kernels": entries}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
