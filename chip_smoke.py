@@ -10,10 +10,12 @@ Phases (any failed check or exception exits nonzero):
    the test shapes and at the shapes of phases 4 and 5 (with a real
    round's hashes), with its time, the plain version's time, the PyTorch
    library call's time where one exists, and the least time the card could
-   take (``bound_ms``);
+   take (``bound_ms``); then the Gaussian pair (B3 sk, B4 desk) at the
+   test shapes, and at full width: every live leaf of the lm25m plan at
+   ratio 0.02 through ``kernels.ops.gaussian_sk``/``gaussian_desk``;
 3. two SAFL rounds of bert_100m SMOKE on the card (kernels) against the
-   same rounds on the CPU (plain versions), from the same weights, once
-   with count-sketch and once with SRHT;
+   same rounds on the CPU (plain versions), from the same weights, with
+   count-sketch, with SRHT and with the Gaussian family;
 4. the main path: three SAFL rounds of bert_100m at full width and depth,
    independent-hash count-sketch through the count-sketch kernel;
 5. three SAFL rounds of the lm25m model with SRHT through the FWHT kernel
@@ -22,10 +24,11 @@ Phases (any failed check or exception exits nonzero):
 Phases 4 and 5 end with a breakdown of one round's time by step.
 
 The launch counts of the kernels are set to 0 just before phases 4 and 5
-and read just after each; the ``kernels`` line has one entry per kernel
-and path.  The last lines are a ``{"kernels": [...]}``
-JSON line, the card's ``nvidia-smi`` line and ``{"ok": true, "device":
-...}``.  Needs one CUDA card; exits nonzero without one.
+and the Gaussian full-width run, and read just after each; the
+``kernels`` line has one entry per kernel and path.  The last lines are a
+``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line and
+``{"ok": true, "device": ...}``.  Needs one CUDA card; exits nonzero
+without one.
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ from repro_torch.data.synthetic import BigramLMData, LMDataConfig  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import countsketch as cs  # noqa: E402
 from repro_torch.kernels import fwht as fw  # noqa: E402
+from repro_torch.kernels import gaussian_sketch as gs  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.launch.driver import run_scan  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.model import (init_params, loss_fn,  # noqa: E402
@@ -64,6 +69,15 @@ from repro_torch.models.model import (init_params, loss_fn,  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# lanes per SM per clock of each pipe on Hopper (sm_90): integer add, logic,
+# shift and multiply; float32 add, multiply and FMA; the 16-lane pipe of
+# special functions and conversions
+LANES = {"int": 64, "fp32": 128, "sfu": 16}
+# operations per element of the Gaussian R that the function needs: the
+# reference's _gauss_tile (src/repro/kernels/gaussian_sketch.py:41) with its
+# counter stepped by one add, plus the contraction's multiply-add.  "sfu" is
+# log, sqrt and cos and the two uint32 -> float conversions; see PERF.md
+GAUSS_OPS = {"int": 22, "fp32": 12, "sfu": 5}
 G_CLIENTS = 5               # clients per round (the paper's section 5 setup)
 
 # examples/train_lm.py's default model, the SRHT phase's model: bert_100m's
@@ -117,6 +131,26 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_sm_clock_hz() -> float:
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+
+
+def gauss_bound_ms(n: int, b: int, clock_hz: float,
+                   sms: int) -> tuple[float, str]:
+    """The least time for one Gaussian sk or desk of an (n, b) R on a card
+    of ``sms`` SMs: the larger of the bytes (x or s read, the output
+    written) over the memory rate and each pipe's operations over its peak
+    rate.  Returns (ms, the bound: "bytes", "int", "fp32" or "sfu")."""
+    times = {"bytes": (n + b) * 4 / HBM_BYTES_PER_S}
+    for pipe, ops in GAUSS_OPS.items():
+        times[pipe] = ops * n * b / (LANES[pipe] * sms * clock_hz)
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +287,147 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
     return entries
 
 
+# the Gaussian pair is held at the lm25m plan at the SRHT phase's ratio
+GAUSS_SKETCH = SketchConfig(kind="gaussian", ratio=0.02, min_b=64)
+# float32 sums of up to ~10^6 products in two orders (the kernels: long
+# sequential runs per thread or lane; the plain versions: matmuls per tile
+# group), plus an ulp or two of log/cos per element: a random walk of
+# ~1e-6 of the largest output.  Adjointness: two float32 dot products of
+# the same terms.
+GAUSS_REL_TOL = 1e-4
+
+
+def check_gauss(kind: str, got: torch.Tensor, want: torch.Tensor,
+                shape: tuple) -> float:
+    torch.cuda.synchronize()
+    err, rel = _errors(got, want)
+    print(f"gaussian_{kind} (n, b)={shape}: max_abs_err {err:.3e} "
+          f"max_rel_err {rel:.3e} (tolerance: rel {GAUSS_REL_TOL:.0e})")
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+          f"gaussian_{kind} {shape}: not finite or shape {tuple(got.shape)}")
+    check(rel <= GAUSS_REL_TOL, f"gaussian_{kind} {shape}: max rel err "
+          f"{rel:.3e} > {GAUSS_REL_TOL:.0e}")
+    return err
+
+
+def check_adjoint(v, s, sk_v, desk_s, what: str) -> None:
+    """<sk(v), s> == <v, desk(s)>, to GAUSS_REL_TOL of |sk(v)| |s|."""
+    lhs, rhs = float(sk_v @ s), float(v @ desk_s)
+    scale = float(sk_v.norm() * s.norm())
+    print(f"gaussian adjointness {what}: <sk(v), s> {lhs:.6e} <v, desk(s)> "
+          f"{rhs:.6e}")
+    check(abs(lhs - rhs) <= GAUSS_REL_TOL * scale,
+          f"gaussian adjointness {what}: {lhs} != {rhs}")
+
+
+def phase_gaussian(gen: torch.Generator) -> list[dict]:
+    """B3 and B4 against their plain versions at the reference's test
+    shapes; then the slice's path at full width, every live leaf of the
+    lm25m plan through ``kernels.ops`` (the launch counts set to 0 just
+    before and read just after); then checks and times at its shapes."""
+    dev = "cuda"
+    print("== phase 2: the Gaussian pair (B3 sk, B4 desk) ==")
+    err = {"sk": 0.0, "desk": 0.0}
+    for n, b in ((100, 16), (513, 64), (2000, 128), (1500, 128), (900, 64)):
+        x = torch.randn(n, generator=gen, device=dev)
+        s = torch.randn(b, generator=gen, device=dev)
+        sk, desk = gs.gaussian_sk_cuda(11, x, b), gs.gaussian_desk_cuda(11, s, n)
+        err["sk"] = max(err["sk"], check_gauss("sk", sk,
+                                               gs.gaussian_sk_plain(11, x, b), (n, b)))
+        err["desk"] = max(err["desk"], check_gauss(
+            "desk", desk, gs.gaussian_desk_plain(11, s, n), (n, b)))
+        check_adjoint(x, s, sk, desk, f"{(n, b)}")
+
+    plan = make_packing_plan(GAUSS_SKETCH, param_shape_tree(LM25M))
+    live = [op for op in plan.ops if not op.raw]
+    key = prng.fold_in(prng.key(0), 0)
+    seeds = {op.index: prng.fold_in(key, op.tag)[1] for op in live}
+    deltas = {op.index: torch.randn(op.n, generator=gen, device=dev) * 1e-3
+              for op in live}
+    total = sum(op.n * op.b for op in live)
+    print(f"lm25m Gaussian plan: {len(live)} live leaves, sum n*b {total:.4g}, "
+          f"shapes {[(op.n, op.b) for op in live]}")
+
+    # the path: each leaf's delta through B3, its payload through B4
+    for c in gs.LAUNCHES.values():
+        c.n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pays, backs = {}, {}
+    for op in live:
+        pays[op.index] = kops.gaussian_sk(seeds[op.index], deltas[op.index], op.b)
+        backs[op.index] = kops.gaussian_desk(seeds[op.index], pays[op.index], op.n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.n for k, c in gs.LAUNCHES.items()}
+    print(f"lm25m Gaussian path (sk + desk of every live leaf): {wall:.3f} s, "
+          f"launches {launches}")
+    for op in live:
+        v, p, back = deltas[op.index], pays[op.index], backs[op.index]
+        check(p.shape == (op.b,) and back.shape == (op.n,)
+              and bool(torch.isfinite(p).all()) and bool(torch.isfinite(back).all()),
+              f"gaussian path leaf {op.index}: shapes or values wrong")
+        check_adjoint(v, p, p, back, f"leaf {op.index} {(op.n, op.b)}")
+
+    # full check at the attention-leaf shape; the first 8 tiles at the
+    # largest b, where the counter stride 2b is largest
+    att = next(op for op in live if op.n == 884_736)
+    big = max(live, key=lambda o: (o.b, o.n))
+    i, seed = att.index, seeds[att.index]
+    err["sk"] = max(err["sk"], check_gauss(
+        "sk", pays[i], gs.gaussian_sk_plain(seed, deltas[i], att.b),
+        (att.n, att.b)))
+    err["desk"] = max(err["desk"], check_gauss(
+        "desk", backs[i], gs.gaussian_desk_plain(seed, pays[i], att.n),
+        (att.n, att.b)))
+    j, seed, m = big.index, seeds[big.index], 8 * gs.TILE_N
+    head = deltas[j][:m].contiguous()
+    err["sk"] = max(err["sk"], check_gauss(
+        "sk", gs.gaussian_sk_cuda(seed, head, big.b),
+        gs.gaussian_sk_plain(seed, head, big.b), (m, big.b)))
+    err["desk"] = max(err["desk"], check_gauss(
+        "desk", backs[j][:m], gs.gaussian_desk_plain(seed, pays[j], m),
+        (m, big.b)))
+
+    # times: kernel and plain at the attention-leaf shape, the kernel alone
+    # at the largest leaf and over the whole plan
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x, p = deltas[i], pays[i]
+    seed = seeds[i]
+    ms = {"sk": cuda_ms(lambda: gs.gaussian_sk_cuda(seed, x, att.b), 1, 3),
+          "desk": cuda_ms(lambda: gs.gaussian_desk_cuda(seed, p, att.n), 1, 3)}
+    plain = {"sk": cuda_ms(lambda: gs.gaussian_sk_plain(seed, x, att.b), 0, 1),
+             "desk": cuda_ms(lambda: gs.gaussian_desk_plain(seed, p, att.n), 0, 1)}
+    bms, by = gauss_bound_ms(att.n, att.b, clock, sms)
+    x, p, seed = deltas[j], pays[j], seeds[j]
+    big_ms = {"sk": cuda_ms(lambda: gs.gaussian_sk_cuda(seed, x, big.b), 0, 2),
+              "desk": cuda_ms(lambda: gs.gaussian_desk_cuda(seed, p, big.n), 0, 2)}
+    big_bms, big_by = gauss_bound_ms(big.n, big.b, clock, sms)
+    plan_ms = {
+        "sk": cuda_ms(lambda: [gs.gaussian_sk_cuda(seeds[o.index], deltas[o.index], o.b)
+                               for o in live], 0, 1),
+        "desk": cuda_ms(lambda: [gs.gaussian_desk_cuda(seeds[o.index], pays[o.index], o.n)
+                                 for o in live], 0, 1)}
+    plan_bms = sum(gauss_bound_ms(o.n, o.b, clock, sms)[0] for o in live)
+    print(f"max SM clock {clock / 1e6:.0f} MHz; {sms} SMs; ops per element "
+          f"{GAUSS_OPS}")
+    for k in ("sk", "desk"):
+        print(f"gaussian_{k} attention leaf (n, b)=({att.n}, {att.b}): ms "
+              f"{ms[k]:.3f}; plain_ms {plain[k]:.3f}; bound_ms {bms:.3f} "
+              f"({by}); largest leaf ({big.n}, {big.b}): ms {big_ms[k]:.3f}, "
+              f"bound_ms {big_bms:.3f} ({big_by}); whole plan: ms "
+              f"{plan_ms[k]:.3f}, bound_ms {plan_bms:.3f}")
+    bound_by = "bytes" if by == "bytes" else "operations"
+    return [dict(name=f"gaussian_{k}", route="cuda",
+                 source="src/repro_torch/csrc/gaussian_sketch.cu",
+                 replaces=f"src/repro/kernels/gaussian_sketch.py:{line}",
+                 launches=launches[f"gaussian_{k}"], max_abs_err=err[k],
+                 ms=ms[k], plain_ms=plain[k], bound_ms=bms, bound_by=bound_by,
+                 library_ms=None)
+            for k, line in (("sk", 55), ("desk", 67))]
+
+
 # ---------------------------------------------------------------------------
 # SAFL phases
 # ---------------------------------------------------------------------------
@@ -272,14 +447,14 @@ def param_shape_tree(model: ModelConfig) -> dict:
     return {k: _Shape(s) for k, s in param_shapes(model).items()}
 
 
-def safl_cfg(sketch: SketchConfig) -> SAFLConfig:
-    return SAFLConfig(sketch=sketch, server=AdaConfig(name="amsgrad", lr=0.01),
+def safl_cfg(sketch: SketchConfig, server: str = "amsgrad") -> SAFLConfig:
+    return SAFLConfig(sketch=sketch, server=AdaConfig(name=server, lr=0.01),
                       client_lr=0.5, local_steps=2)
 
 
 def run_rounds(model: ModelConfig, sketch: SketchConfig, data: LMDataConfig,
-               device: str, rounds: int, per_round=None):
-    cfg = safl_cfg(sketch)
+               device: str, rounds: int, per_round=None, server="amsgrad"):
+    cfg = safl_cfg(sketch, server)
     params = init_params(model, torch.Generator().manual_seed(0), device=device)
     opt = init_safl(cfg, params)
     sampler = BigramLMData(data).device_sampler(batch_per_client=8,
@@ -293,15 +468,33 @@ def run_rounds(model: ModelConfig, sketch: SketchConfig, data: LMDataConfig,
                     on_chunk=per_round)
 
 
+# (sketch, ratio, server optimizer) of each SMOKE run.  The Gaussian
+# family (``use_kernels`` routes nothing different for it, as in the
+# reference) draws ~3e7 normals per sk or desk at ratio 0.002, which keeps
+# the CPU's threefry in PyTorch integer ops to seconds.  Its server is
+# plain SGD: each coordinate's desketched update is a sum over all b slots,
+# so some lie near zero, and AMSGrad's normalized step turns the ulp-level
+# gap between the two devices' draws into sign flips there
+# (tests/test_torch_gaussian.py measures this against the reference).
+SMOKE_RUNS = ((MAIN_SKETCH, 0.05, "amsgrad"), (SRHT_SKETCH, 0.05, "amsgrad"),
+              (dataclasses.replace(GAUSS_SKETCH, use_kernels=True), 0.002, "sgd"))
+
+
 def phase_card_vs_cpu() -> None:
     print("== phase 3: bert_100m SMOKE, card (kernels) against CPU (plain) ==")
     data = LMDataConfig(vocab_size=256, seq_len=32, num_clients=G_CLIENTS,
                         heterogeneity=0.3, alpha=0.02)
-    for sketch in (MAIN_SKETCH, SRHT_SKETCH):
-        sk = dataclasses.replace(sketch, ratio=0.05, min_b=16)
-        pg, og, hg = run_rounds(bert_100m.SMOKE, sk, data, "cuda", 2)
-        pc, oc, hc = run_rounds(bert_100m.SMOKE, sk, data, "cpu", 2)
-        print(f"{sk.kind}: loss card {hg['loss']} cpu {hc['loss']}")
+    for sketch, ratio, server in SMOKE_RUNS:
+        sk = dataclasses.replace(sketch, ratio=ratio, min_b=16)
+        t0 = time.perf_counter()
+        pg, og, hg = run_rounds(bert_100m.SMOKE, sk, data, "cuda", 2,
+                                server=server)
+        t1 = time.perf_counter()
+        pc, oc, hc = run_rounds(bert_100m.SMOKE, sk, data, "cpu", 2,
+                                server=server)
+        print(f"{sk.kind} (ratio {ratio}, server {server}): loss card "
+              f"{hg['loss']} cpu {hc['loss']}; card {t1 - t0:.1f} s, cpu "
+              f"{time.perf_counter() - t1:.1f} s")
         check(np.allclose(hg["loss"], hc["loss"], rtol=1e-4, atol=1e-4),
               f"SMOKE {sk.kind} losses differ between card and CPU")
         worst = 0.0
@@ -425,6 +618,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     entries = phase_kernels(gen)
+    torch.cuda.empty_cache()
+    entries += phase_gaussian(gen)
     torch.cuda.empty_cache()
     phase_card_vs_cpu()
 

@@ -11,7 +11,8 @@ port and the payload of the reference line up slot for slot.
 The independent count-sketch family collapses the tree to one segment sum
 over a global hash (leaf-local slot plus the leaf's payload offset); with
 ``use_kernels`` the G clients' uplink is one launch of the batched
-count-sketch kernel (``sk_packed_clients``).
+count-sketch kernel (``sk_packed_clients``).  The Gaussian family's round
+parameters are the ops' keys; its R chunks are drawn in sk and desk.
 """
 
 from __future__ import annotations
@@ -24,9 +25,10 @@ import torch
 from repro_torch import prng
 from repro_torch.core.sketch import (SketchConfig, _balanced_cs_params,
                                      _balanced_desk_core, _balanced_sk_core,
-                                     _cs_hashes, _keys, _srht_params, f32_sqrt,
-                                     fwht, leaf_names, leaf_sketch_size,
-                                     next_pow2, numel, scatter_add)
+                                     _cs_hashes, _gaussian_desk, _gaussian_sk,
+                                     _keys, _srht_params, f32_sqrt, fwht,
+                                     leaf_names, leaf_sketch_size, next_pow2,
+                                     numel, scatter_add)
 from repro_torch.kernels import ops as kops
 
 Tree = Mapping[str, torch.Tensor]
@@ -162,6 +164,12 @@ def derive_round_params(plan: PackingPlan, key: prng.Key, device) -> dict:
                                             device)[1:]
         return {"srht": tuple(params)}
 
+    if cfg.kind == "gaussian":
+        keys: list = [None] * len(plan.ops)
+        for op in live:
+            keys[op.index] = _op_key(key, op)
+        return {"keys": tuple(keys)}
+
     raise ValueError(f"unknown sketch kind: {cfg.kind}")
 
 
@@ -206,6 +214,18 @@ def _srht_sk_rows(plan: PackingPlan, rp: dict, flat2: torch.Tensor) -> torch.Ten
     return torch.cat(parts, dim=1).to(cfg.transport_dtype)
 
 
+def _gaussian_sk_rows(plan: PackingPlan, rp: dict,
+                      flat2: torch.Tensor) -> torch.Tensor:
+    """Gaussian sk of G packed rows (G, d_total) -> (G, b_total): each op's
+    R chunks are drawn once and multiply all G rows, ``(G, c) @ (c, b)``."""
+    parts: list = [None] * len(plan.ops)
+    for op in plan.ops:
+        v = flat2[:, op.in_off:op.in_off + op.n]
+        parts[op.index] = v if op.raw else _gaussian_sk(
+            plan.cfg, rp["keys"][op.index], v, op.b)
+    return torch.cat(parts, dim=1).to(plan.cfg.transport_dtype)
+
+
 def sk_flat(plan: PackingPlan, rp: dict, flat: torch.Tensor) -> torch.Tensor:
     """Fused sk of the packed (d_total,) buffer -> (b_total,) payload."""
     cfg = plan.cfg
@@ -228,6 +248,9 @@ def sk_flat(plan: PackingPlan, rp: dict, flat: torch.Tensor) -> torch.Tensor:
 
     if cfg.kind == "srht":
         return _srht_sk_rows(plan, rp, flat[None])[0]
+
+    if cfg.kind == "gaussian":
+        return _gaussian_sk_rows(plan, rp, flat[None])[0]
 
     raise ValueError(f"unknown sketch kind: {cfg.kind}")
 
@@ -266,6 +289,14 @@ def desk_flat(plan: PackingPlan, rp: dict, payload: torch.Tensor) -> torch.Tenso
                 parts[op.index] = s[op.pay_off:op.pay_off + op.b]
         return torch.cat(parts)
 
+    if cfg.kind == "gaussian":
+        parts = [None] * len(plan.ops)
+        for op in plan.ops:
+            u = s[op.pay_off:op.pay_off + op.b]
+            parts[op.index] = u if op.raw else _gaussian_desk(
+                cfg, rp["keys"][op.index], u, op.n)
+        return torch.cat(parts)
+
     raise ValueError(f"unknown sketch kind: {cfg.kind}")
 
 
@@ -287,9 +318,10 @@ def sk_packed_clients(plan: PackingPlan, rp: dict, stacked: Tree) -> torch.Tenso
     """Sketch G stacked client trees (leaves (G, ...)) -> (G, b_total).
 
     The independent count-sketch family with ``use_kernels`` is one launch
-    of the batched count-sketch kernel over all G rows, and SRHT is one
-    batched FWHT per padded-length group over all G rows; the balanced
-    family sketches the rows one by one.  The sign multiply runs in place on
+    of the batched count-sketch kernel over all G rows, SRHT is one
+    batched FWHT per padded-length group over all G rows, and the Gaussian
+    family draws each R chunk once for all G rows; the balanced family
+    sketches the rows one by one.  The sign multiply runs in place on
     the freshly packed ``(G, d_total)`` buffer, saving one buffer of that
     size.
     """
@@ -304,4 +336,6 @@ def sk_packed_clients(plan: PackingPlan, rp: dict, stacked: Tree) -> torch.Tenso
         return out.to(cfg.transport_dtype)
     if cfg.kind == "srht" and not plan.all_raw:
         return _srht_sk_rows(plan, rp, flat2)
+    if cfg.kind == "gaussian" and not plan.all_raw:
+        return _gaussian_sk_rows(plan, rp, flat2)
     return torch.stack([sk_flat(plan, rp, f) for f in flat2])

@@ -1,11 +1,11 @@
 """Random linear sketching operators for SAFL (paper §3.2), in PyTorch.
 
-Counterpart of ``repro/core/sketch.py``: the ``srht`` and ``countsketch``
-families (both hash families) and ``none``, per tensor or over the
-concatenated vector, with the reference's key derivation (``fold_in`` on
-the leaf index, ``split`` inside each family), so a sketch of the port and
-a sketch of the reference under one key use bit-identical hashes, signs
-and SRHT indices.  ``kind="gaussian"`` is not ported yet.
+Counterpart of ``repro/core/sketch.py``: the ``gaussian``, ``srht`` and
+``countsketch`` families (both hash families) and ``none``, per tensor or
+over the concatenated vector, with the reference's key derivation
+(``fold_in`` on the leaf index, ``split`` inside each family), so a sketch
+of the port and a sketch of the reference under one key use bit-identical
+hashes, signs, SRHT indices and Gaussian uniforms.
 
 A tree is a flat ``dict[str, Tensor]`` keyed by the reference's
 "/"-joined leaf paths; ``leaf_names`` orders it as jax's ``tree_flatten``
@@ -16,7 +16,10 @@ With ``use_kernels`` the FWHT and the count-sketch segment sums go through
 plain versions for CPU tensors.  The SRHT desketch's scatter of ``b``
 payload slots into ``n2`` rows is a count-sketch segment sum too; on that
 route it uses the same deterministic kernel, where ``index_add_`` on CUDA
-would add repeated indices in no fixed order.
+would add repeated indices in no fixed order.  The Gaussian family draws
+its R chunk by chunk with ``prng.normal`` on either route: the on-the-fly
+Gaussian kernels (``kernels.ops.gaussian_sk``/``gaussian_desk``) generate
+another R and stay unwired, as the reference's Pallas pair does.
 """
 
 from __future__ import annotations
@@ -38,26 +41,22 @@ Tree = Mapping[str, torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class SketchConfig:
     """Configuration of the sketching compressor (the reference's fields;
-    ``use_kernels`` is its ``use_pallas``; ``gaussian_chunk`` comes with
-    the Gaussian family)."""
+    ``use_kernels`` is its ``use_pallas``)."""
 
-    kind: str = "countsketch"  # none | srht | countsketch (gaussian: not yet)
+    kind: str = "countsketch"  # none | gaussian | srht | countsketch
     ratio: float = 0.01        # b = ceil(n * ratio) per tensor
     min_b: int = 64            # floor on per-tensor sketch size
     max_b: Optional[int] = None
     mode: str = "per_tensor"   # per_tensor | concat
     transport_dtype: Any = torch.float32  # dtype of the transmitted sketch
     use_kernels: bool = False  # route hot loops through the Hopper kernels
+    gaussian_chunk: int = 8192  # column chunk for on-the-fly Gaussian R
     # "balanced" (block-sparse JL, gather/reshape/sum) or "independent"
     # (per-element uniform hash + segment sum); see the reference.
     cs_hash: str = "balanced"
 
     def __post_init__(self):
-        if self.kind == "gaussian":
-            raise NotImplementedError(
-                "the Gaussian sketch family is not ported yet "
-                "(ROADMAP A2, Gaussian family; kernels B3/B4)")
-        if self.kind not in ("none", "srht", "countsketch"):
+        if self.kind not in ("none", "gaussian", "srht", "countsketch"):
             raise ValueError(f"unknown sketch kind: {self.kind}")
         if self.mode not in ("per_tensor", "concat"):
             raise ValueError(f"unknown sketch mode: {self.mode}")
@@ -105,6 +104,37 @@ def _keys(key: prng.Key, *tags: int) -> prng.Key:
     for t in tags:
         key = prng.fold_in(key, t)
     return key
+
+
+def _gaussian_chunk(key: prng.Key, i: int, c: int, n: int, b: int,
+                    device) -> torch.Tensor:
+    """Rows ``i*c`` up to ``min((i+1)*c, n)`` of R^T: chunk i is
+    ``normal(fold_in(key, i), (c, b))``.  The stream hashes the flat
+    element index, so the last chunk draws only the rows it keeps; the
+    reference draws all c and multiplies its padding rows by zeros."""
+    return prng.normal(prng.fold_in(key, i), (min(c, n - i * c), b), device)
+
+
+def _gaussian_sk(cfg: SketchConfig, key: prng.Key, v: torch.Tensor,
+                 b: int) -> torch.Tensor:
+    """sk(v) = R v / sqrt(b), R ~ N(0,1)^{b x n}, generated chunk-wise.
+    ``v`` is (n,) or (G, n); G rows are sketched against one draw of each
+    chunk, as the reference's vmap with an unbatched key does."""
+    n, c = v.shape[-1], cfg.gaussian_chunk
+    acc = torch.zeros(v.shape[:-1] + (b,), dtype=v.dtype, device=v.device)
+    for i in range(-(-n // c)):
+        r = _gaussian_chunk(key, i, c, n, b, v.device).to(v.dtype)
+        acc = acc + v[..., i * c:(i + 1) * c] @ r
+    return acc / f32_sqrt(b)
+
+
+def _gaussian_desk(cfg: SketchConfig, key: prng.Key, s: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """desk(s) = R^T s / sqrt(b) (so desk(sk(v)) = R^T R v / b, unbiased)."""
+    b, c = s.shape[0], cfg.gaussian_chunk
+    chunks = [_gaussian_chunk(key, i, c, n, b, s.device).to(s.dtype) @ s
+              for i in range(-(-n // c))]
+    return torch.cat(chunks) / f32_sqrt(b)
 
 
 def _srht_params(key: prng.Key, n: int, b: int, device):
@@ -205,7 +235,8 @@ def sk_leaf(cfg: SketchConfig, key: prng.Key, v: torch.Tensor) -> torch.Tensor:
     b = leaf_sketch_size(n, cfg)
     if b >= n:  # sketch would not compress; transmit raw
         return v.to(cfg.transport_dtype)
-    fn = {"srht": _srht_sk, "countsketch": _countsketch_sk}[cfg.kind]
+    fn = {"gaussian": _gaussian_sk, "srht": _srht_sk,
+          "countsketch": _countsketch_sk}[cfg.kind]
     return fn(cfg, key, v, b).to(cfg.transport_dtype)
 
 
@@ -215,7 +246,8 @@ def desk_leaf(cfg: SketchConfig, key: prng.Key, s: torch.Tensor, n: int,
     s = s.to(dtype)
     if cfg.kind == "none" or s.shape[0] >= n:
         return s[:n]
-    fn = {"srht": _srht_desk, "countsketch": _countsketch_desk}[cfg.kind]
+    fn = {"gaussian": _gaussian_desk, "srht": _srht_desk,
+          "countsketch": _countsketch_desk}[cfg.kind]
     return fn(cfg, key, s, n)
 
 

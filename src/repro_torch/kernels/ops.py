@@ -5,7 +5,8 @@ the tensor given: a CUDA tensor goes to the kernel, which launches or
 raises (there is no fallback when a build or a launch fails); a CPU tensor
 goes to the plain PyTorch version, the role ``interpret=True`` plays in the
 reference.  ``repro_torch.core`` calls these when
-``SketchConfig.use_kernels`` is set.
+``SketchConfig.use_kernels`` is set; nothing there calls the Gaussian
+pair, as in the reference.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.kernels import countsketch as _cs
 from repro_torch.kernels import fwht as _fw
+from repro_torch.kernels import gaussian_sketch as _gs
 
 MAX_N = _fw.MAX_N
 
@@ -52,3 +54,17 @@ def fwht_rows(x: torch.Tensor) -> torch.Tensor:
 def fwht(v: torch.Tensor) -> torch.Tensor:
     """Unnormalized FWHT of a power-of-2-length vector."""
     return fwht_rows(v.reshape(1, -1)).reshape(-1)
+
+
+def gaussian_sk(seed: int, x: torch.Tensor, b: int) -> torch.Tensor:
+    """sk(x) = R x / sqrt(b), R (b, n) regenerated from ``seed`` (uint32)."""
+    if _on_cuda(x):
+        return _gs.gaussian_sk_cuda(seed, x, b)
+    return _gs.gaussian_sk_plain(seed, x, b)
+
+
+def gaussian_desk(seed: int, s: torch.Tensor, n: int) -> torch.Tensor:
+    """desk(s) = R^T s / sqrt(b), from the same R as ``gaussian_sk``."""
+    if _on_cuda(s):
+        return _gs.gaussian_desk_cuda(seed, s, n)
+    return _gs.gaussian_desk_plain(seed, s, n)

@@ -11,8 +11,8 @@ batches.
 A key is a pair of Python ints ``(k0, k1)``, each an unsigned 32-bit word:
 deriving keys (``key``, ``fold_in``, ``split``) is scalar work done on the
 host, so it never synchronises with the device.  The bulk draws
-(``random_bits``, ``randint``, ``uniform``, ``rademacher``) run on the
-tensor device the caller names.  Every stream is a pure function of its
+(``random_bits``, ``randint``, ``uniform``, ``rademacher``, ``normal``) run
+on the tensor device the caller names.  Every stream is a pure function of its
 key, which is a pure function of ``(seed, round, client, leaf)``: keys are
 the port's explicit generators.
 
@@ -27,6 +27,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 Key = tuple[int, int]
@@ -144,3 +145,25 @@ def rademacher(k: Key, shape: Shape, device) -> torch.Tensor:
     draw is below 0.5, that is where bit 31 of the draw is clear."""
     bits = random_bits(k, shape, device)
     return 1.0 - 2.0 * (bits >> 31).to(torch.float32)
+
+
+# jax's ``_normal_real`` bounds, in float32: lo = nextafter(-1, 0); hi - lo
+# rounds to 2.0 in float32, as jax computes it
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_NORMAL_SPAN = float(np.float32(1.0) - np.float32(_NORMAL_LO))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal_uniform(k: Key, shape: Shape, device) -> torch.Tensor:
+    """The uniforms ``jax.random.normal`` feeds to ``erfinv``:
+    ``uniform(k, shape, minval=lo, maxval=1)``, that is
+    ``max(lo, f * (hi - lo) + lo)`` on ``(-1, 1)``."""
+    f = uniform(k, shape, device)
+    return torch.clamp(f * _NORMAL_SPAN + _NORMAL_LO, min=_NORMAL_LO)
+
+
+def normal(k: Key, shape: Shape, device) -> torch.Tensor:
+    """``jax.random.normal(k, shape, float32)``: ``sqrt(2) * erfinv(u)``.
+    The uniforms are the reference's bit for bit; ``erfinv`` is PyTorch's,
+    within ~1e-5 relative of XLA's float32 polynomial."""
+    return torch.erfinv(normal_uniform(k, shape, device)) * _SQRT2

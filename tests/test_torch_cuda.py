@@ -25,6 +25,7 @@ from repro_torch.core.sketch import SketchConfig
 from repro_torch.data.synthetic import BigramLMData, LMDataConfig
 from repro_torch.kernels import countsketch as cs
 from repro_torch.kernels import fwht as fw
+from repro_torch.kernels import gaussian_sketch as gs
 from repro_torch.launch.driver import run_host_loop, run_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params, loss_fn
@@ -60,6 +61,10 @@ def test_cuda_wrappers_reject_cpu_tensors():
         cs.countsketch_clients_cuda(x, h, 4)
     with pytest.raises(ValueError):
         fw.fwht_rows_cuda(x)
+    with pytest.raises(ValueError):
+        gs.gaussian_sk_cuda(3, x[0], 4)
+    with pytest.raises(ValueError):
+        gs.gaussian_desk_cuda(3, x[0], 16)
 
 
 @pytest.mark.cuda
@@ -80,6 +85,28 @@ def test_kernels_match_plain_versions():
         x = torch.randn(shape, generator=gen, device="cuda")
         torch.testing.assert_close(fw.fwht_rows_cuda(x), fw.fwht_plain(x),
                                    rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_gaussian_kernels_match_plain_versions():
+    """B3 (sk) and B4 (desk) against their plain versions at the
+    reference's test shapes and the first 8 tiles of the lm25m plan's
+    largest leaf (b = 70,779), plus adjointness.  The same R (integer
+    counters, an ulp or two of log/cos); float32 sums in another order:
+    1e-5 of the largest output."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for n, b in [(100, 16), (513, 64), (2000, 128), (1500, 128), (900, 64),
+                 (8 * gs.TILE_N, 70_779)]:
+        x = torch.randn(n, generator=gen, device="cuda")
+        s = torch.randn(b, generator=gen, device="cuda")
+        sk, desk = gs.gaussian_sk_cuda(11, x, b), gs.gaussian_desk_cuda(11, s, n)
+        for got, want in ((sk, gs.gaussian_sk_plain(11, x, b)),
+                          (desk, gs.gaussian_desk_plain(11, s, n))):
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * float(want.abs().max()))
+        lhs, rhs = float(sk @ s), float(x @ desk)
+        assert abs(lhs - rhs) <= 1e-5 * float(sk.norm() * s.norm()), (n, b)
 
 
 @pytest.mark.cuda

@@ -195,8 +195,3 @@ def test_plan_layout_matches_reference(which, kw):
 
 def t_param_shapes_as_specs(model):
     return {k: _Spec(s) for k, s in t_param_shapes(model).items()}
-
-
-def test_gaussian_family_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsk.SketchConfig(kind="gaussian")
