@@ -10,8 +10,11 @@ Phases (any failed check or exception exits nonzero):
    the test shapes and at the shapes of phases 4 and 5 (with a real
    round's hashes), with its time, the plain version's time, the PyTorch
    library call's time where one exists, and the least time the card could
-   take (``bound_ms``); then the Gaussian pair (B3 sk, B4 desk) at the
-   test shapes, and at full width: every live leaf of the lm25m plan at
+   take (``bound_ms``); for the count-sketch route also its stages' times,
+   its device launches per call, skewed and b >> n cases, and two calls
+   held bitwise equal at both main-path shapes; then the Gaussian pair (B3
+   sk, B4 desk) at the test shapes, and at full width: every live leaf of
+   the lm25m plan at
    ratio 0.02 through ``kernels.ops.gaussian_sk``/``gaussian_desk``;
 3. two SAFL rounds of bert_100m SMOKE on the card (kernels) against the
    same rounds on the CPU (plain versions), from the same weights, with
@@ -160,7 +163,9 @@ def gauss_bound_ms(n: int, b: int, clock_hz: float,
 def cs_tolerance(x: torch.Tensor, h: torch.Tensor, b: int) -> float:
     """Two float32 summation orders of the same terms differ by at most
     about k * 2**-24 of the slot's absolute sum for k terms; 1e-5 of the
-    largest absolute slot sum covers k <= 160."""
+    largest absolute slot sum covers k <= 160.  For more terms of random
+    sign (the one-slot cases, k = 100,000) the roundings add as a random
+    walk, ~1e-7 of the slot's absolute sum."""
     return 1e-5 * float(cs.countsketch_clients_plain(x.abs(), h, b).max()) + 1e-30
 
 
@@ -173,16 +178,62 @@ def _errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 
 
 def check_countsketch(x: torch.Tensor, h: torch.Tensor, b: int) -> float:
+    """The route against its plain version (``index_add_``: the same terms
+    in another order) within ``cs_tolerance``, and against the sum in its
+    own order (each slot from 0 in ascending i), bit for bit."""
     got = cs.countsketch_clients_cuda(x, h, b)
     want = cs.countsketch_clients_plain(x, h, b)
     torch.cuda.synchronize()
     err, rel = _errors(got, want)
     tol = cs_tolerance(x, h, b)
-    print(f"countsketch G={x.shape[0]} n={x.shape[1]} b={b}: max_abs_err "
-          f"{err:.3e} max_rel_err {rel:.3e} (tolerance: abs {tol:.3e})")
-    check(err <= tol, f"countsketch G={x.shape[0]} n={x.shape[1]} b={b}: "
-          f"max abs err {err:.3e} > tol {tol:.3e}")
+    exact = torch.equal(got, cs.countsketch_clients_ordered(x, h, b))
+    what = f"countsketch G={x.shape[0]} n={x.shape[1]} b={b}"
+    print(f"{what}: max_abs_err {err:.3e} max_rel_err {rel:.3e} (tolerance: "
+          f"abs {tol:.3e}); bitwise equal to the ordered sum: {exact}")
+    check(err <= tol, f"{what}: max abs err {err:.3e} > tol {tol:.3e}")
+    check(exact, f"{what}: differs from the sum in ascending index order")
     return err
+
+
+def check_repeat(x: torch.Tensor, h: torch.Tensor, b: int, what: str) -> None:
+    """Two calls on the same inputs return the same bits: the count-sketch
+    route sums in a fixed order."""
+    same = torch.equal(cs.countsketch_clients_cuda(x, h, b),
+                       cs.countsketch_clients_cuda(x, h, b))
+    print(f"countsketch {what}: two calls bitwise equal: {same}")
+    check(same, f"countsketch {what}: two calls differ")
+
+
+def cs_stages(x: torch.Tensor, h: torch.Tensor, b: int,
+              iters: int = 5) -> str:
+    """Device ms of each stage of the count-sketch route (mean over
+    ``iters`` calls after a warm-up) and the device launches (kernels and
+    memsets) of one call.  The large-n route's stages are timed by CUDA
+    events between its launches; the small-n route is one launch, whose
+    stages are timed by the card's global timer, read at its grid barriers."""
+    cs.countsketch_clients_cuda(x, h, b)
+    n0 = cs.DEVICE_LAUNCHES.n
+    cs.countsketch_clients_cuda(x, h, b)
+    per_call = cs.DEVICE_LAUNCHES.n - n0
+    ms: dict[str, float] = {}
+    for _ in range(iters):
+        marks: list = []
+        cs.countsketch_clients_cuda(x, h, b, marks=marks)
+        torch.cuda.synchronize()
+        events = [m for m in marks if m[0] != "stamps"]
+        for (_, a), (stage, e) in zip(events, events[1:]):
+            ms[stage] = ms.get(stage, 0.0) + a.elapsed_time(e) / iters
+        for stage, t in marks:
+            if stage != "stamps":
+                continue
+            t = t.cpu().tolist()
+            ends = {"histogram": [1], "scan": [2],
+                    "placement": list(range(3, len(t), 2)),
+                    "reduce": list(range(4, len(t), 2))}
+            for name, ks in ends.items():
+                ms[name] = ms.get(name, 0.0) + sum(t[k] - t[k - 1] for k in ks) / 1e6 / iters
+    return (", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+            + f"; {per_call} device launches per call")
 
 
 def check_fwht(x: torch.Tensor) -> float:
@@ -198,15 +249,26 @@ def check_fwht(x: torch.Tensor) -> float:
     return err
 
 
+# B1 cases beyond the reference's test shapes: (G, n, b, hash), where the
+# hash "zero" puts all of n into slot 0; the last takes the large-n route
+CS_EDGE_CASES = ((1, 100_000, 1, "zero"), (1, 100_000, 300, "zero"),
+                 (1, 17, 1 << 22, "random"), (1, 70_779, 1 << 22, "random"),
+                 (13, 5000, 300, "random"), (3, 0, 64, "random"),
+                 (7, cs.COARSE_MIN_N + 12_345, 30_000, "random"))
+
+
 def phase_kernels(gen: torch.Generator) -> list[dict]:
     dev = "cuda"
     print("== phase 2: kernels against their plain versions ==")
-    for g, n, b in ([(1, n, b) for n in (17, 1000, 1024, 5000)
-                     for b in (8, 128, 300)]
-                    + [(1, 3000, 2049), (1, 3000, 4096), (1, 100, 16),
-                       (5, 2000, 64), (9, 1500, 3000)]):
+    for g, n, b, kind in ([(1, n, b, "random") for n in (17, 1000, 1024, 5000)
+                           for b in (8, 128, 300)]
+                          + [(1, 3000, 2049, "random"), (1, 3000, 4096, "random"),
+                             (1, 100, 16, "random"), (5, 2000, 64, "random"),
+                             (9, 1500, 3000, "random")]
+                          + list(CS_EDGE_CASES)):
         x = torch.randn((g, n), generator=gen, device=dev)
-        h = torch.randint(0, b, (n,), generator=gen, device=dev)
+        h = (torch.zeros(n, dtype=torch.int64, device=dev) if kind == "zero"
+             else torch.randint(0, b, (n,), generator=gen, device=dev))
         check_countsketch(x, h, b)
     for shape in ((1, 8), (9, 4096), (20, 512), (1, 32768), (1, 1 << 24)):
         check_fwht(torch.randn(shape, generator=gen, device=dev))
@@ -218,25 +280,47 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
     g = G_CLIENTS
     x = torch.randn((g, plan.d_total), generator=gen, device=dev) * 1e-3
     err = check_countsketch(x, h, b)
+    check_repeat(x, h, b, "main path")
     ms = cuda_ms(lambda: cs.countsketch_clients_cuda(x, h, b))
-    perm, off = cs.bucket(h, b)
-    out = torch.empty((g, b), device=dev)
-    seg_ms = cuda_ms(lambda: cs.segsum(x, perm, off, out))
+    stages = cs_stages(x, h, b)
     plain_ms = cuda_ms(lambda: cs.countsketch_clients_plain(x, h, b))
     zeros = torch.zeros((g, b), device=dev)
     lib_ms = cuda_ms(lambda: zeros.index_add_(1, h, x))
     nb = x.numel() * 4 + h.numel() * h.element_size() + g * b * 4
     bms, by = bound_ms(nb, x.numel())
+    print(f"countsketch main path G={g} n={plan.d_total} b={b} (window "
+          f"{cs.route(plan.d_total, b)[0]}): stages (ms) {stages}")
     print(f"countsketch main path G={g} n={plan.d_total} b={b}: "
-          f"ms {ms:.3f} (bucketing + segment-sum kernel; kernel "
-          f"alone {seg_ms:.3f}); plain_ms {plain_ms:.3f}; library_ms "
+          f"ms {ms:.3f} (the whole route); plain_ms {plain_ms:.3f}; library_ms "
           f"(index_add_) {lib_ms:.3f}; bound_ms {bms:.3f} ({by})")
     entries = [dict(name="countsketch_clients", route="cuda",
                     source="src/repro_torch/csrc/countsketch.cu",
                     replaces="src/repro/kernels/countsketch.py:45",
                     launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bms, bound_by=by, library_ms=lib_ms)]
-    del x, h, rp, perm, off, out, zeros
+    del h, rp, zeros
+
+    # the same uplink at the smaller ratios users also run (more indices
+    # per slot: ~100 and ~200); checked and timed, not on the main path
+    for ratio in (0.01, 0.005):
+        sk = dataclasses.replace(MAIN_SKETCH, ratio=ratio)
+        plan = make_packing_plan(sk, param_shape_tree(bert_100m.CONFIG))
+        h = derive_round_params(plan, prng.fold_in(prng.key(0), 0), dev)["h"]
+        b = plan.b_total
+        check_countsketch(x, h, b)
+        check_repeat(x, h, b, f"bert_100m uplink at ratio {ratio}")
+        ms = cuda_ms(lambda: cs.countsketch_clients_cuda(x, h, b))
+        zeros = torch.zeros((g, b), device=dev)
+        lib_ms = cuda_ms(lambda: zeros.index_add_(1, h, x))
+        bms, by = bound_ms(x.numel() * 4 + h.numel() * h.element_size() + g * b * 4,
+                           x.numel())
+        print(f"countsketch bert_100m uplink at ratio {ratio} G={g} "
+              f"n={plan.d_total} b={b} (window {cs.route(plan.d_total, b)[0]}): "
+              f"stages (ms) {cs_stages(x, h, b)}")
+        print(f"countsketch bert_100m uplink at ratio {ratio}: ms {ms:.3f}; "
+              f"library_ms (index_add_) {lib_ms:.3f}; bound_ms {bms:.3f} ({by})")
+        del h, zeros
+    del x
 
     # the SRHT phase (the lm25m plan) with a real round's operator: B1 as
     # the desk scatter of each live op's b payload slots into n2 slots, B2
@@ -255,6 +339,10 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
     lib_ms = cuda_ms(lambda: zeros.index_add_(0, idx, x[0]))
     bms, by = bound_ms(x.numel() * 4 + idx.numel() * idx.element_size()
                        + op.n2 * 4, x.numel())
+    check_repeat(x, idx, op.n2, "SRHT desk scatter")
+    print(f"countsketch SRHT desk scatter G=1 n={op.b} b={op.n2} (window "
+          f"{cs.route(op.b, op.n2)[0]}): stages (ms) "
+          f"{cs_stages(x, idx, op.n2)}")
     print(f"countsketch SRHT desk scatter G=1 n={op.b} b={op.n2}: ms {ms:.4f}; "
           f"plain_ms {plain_ms:.4f}; library_ms (index_add_) {lib_ms:.4f}; "
           f"bound_ms {bms:.4f} ({by})")
@@ -596,6 +684,12 @@ def round_breakdown(name: str, model: ModelConfig, sketch: SketchConfig,
         f"{k} {v:.1f} ({100 * v / total:.0f}%)" for k, v in parts.items()))
 
 
+def print_cs_launches(name: str, n: dict[str, int]) -> None:
+    print(f"{name}: countsketch route called {n['countsketch']} times, "
+          f"{n['countsketch_device']} device launches (kernels and memsets), "
+          f"{n['countsketch_device'] / n['countsketch']:.1f} per call")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -625,12 +719,16 @@ def main() -> int:
 
     print("== phase 4: main path, bert_100m full width, count-sketch ==")
     n = phase_full("bert_100m", bert_100m.CONFIG, MAIN_SKETCH,
-                   {"countsketch": cs.LAUNCHES})
+                   {"countsketch": cs.LAUNCHES,
+                    "countsketch_device": cs.DEVICE_LAUNCHES})
+    print_cs_launches("bert_100m", n)
     entries[0]["launches"] = n["countsketch"]
     torch.cuda.empty_cache()
     print("== phase 5: lm25m, SRHT ==")
     n = phase_full("lm25m", LM25M, SRHT_SKETCH,
-                   {"countsketch": cs.LAUNCHES, "fwht": fw.LAUNCHES})
+                   {"countsketch": cs.LAUNCHES, "fwht": fw.LAUNCHES,
+                    "countsketch_device": cs.DEVICE_LAUNCHES})
+    print_cs_launches("lm25m", n)
     entries[1]["launches"] = n["countsketch"]
     entries[2]["launches"] = n["fwht"]
     for e in entries:

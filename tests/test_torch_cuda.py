@@ -67,6 +67,93 @@ def test_cuda_wrappers_reject_cpu_tensors():
         gs.gaussian_desk_cuda(3, x[0], 16)
 
 
+@pytest.mark.parametrize("n,b", [(132_008_448, 2_640_275), (5000, 8),
+                                 (3000, 3000), (3000, 3001), (3000, 4096),
+                                 (70_779, 1 << 22), (17, 1 << 22), (0, 64),
+                                 (1 << 20, 1 << 26), (1 << 26, 1 << 26),
+                                 (132_008_448, 1_320_138), (132_008_448, 660_069),
+                                 (132_008_448, (1 << 22) + 1), (132_008_448, 131_073),
+                                 (1 << 30, 1 << 20)])
+def test_countsketch_route(n, b):
+    """Below ``COARSE_MIN_N`` or with b > n: one slot per window when
+    n >= b; when b > n, 8-16 indices per window on average, so the bins
+    number at most ~n/16 and not b.  From it on with n >= b: the large-n
+    route, with the widest windows that keep them at most
+    ``COARSE_WINDOWS`` and their mean at most ``FILL`` records, or as close
+    to that mean as ``MAX_WINDOWS`` windows come."""
+    width, large = cs.route(n, b)
+    bins = -(-b // width)
+    assert width >= 1 and width & (width - 1) == 0
+    if large:
+        assert n >= cs.COARSE_MIN_N and n >= b and width <= cs.BIG_SLOTS
+        assert bins <= cs.MAX_WINDOWS
+        assert (n * width <= cs.FILL * b or width == 1
+                or -(-b // (width // 2)) > cs.MAX_WINDOWS)
+        wider = 2 * width
+        assert -(-b // wider) > cs.COARSE_WINDOWS or n * wider > cs.FILL * b
+    elif n >= b:
+        assert width == 1
+    else:
+        assert width > 1 and bins <= max(-(-n // 16), 1) and n <= 32 * bins
+    assert cs.route(132_008_448, 2_640_275) == (32, True)
+
+
+def test_countsketch_limits_come_from_the_source():
+    """The wrapper's limits are the kernels' own, read from their source."""
+    text = (pathlib.Path(cs.build.CSRC) / "countsketch.cu").read_text()
+    for name, value in (("CS_ROWS", cs.ROWS), ("CS_BIG_SLOTS", cs.BIG_SLOTS),
+                        ("CS_BIG_CAP", cs.BIG_CAP), ("CS_MAX_WINDOWS", cs.MAX_WINDOWS)):
+        assert f"#define {name} {value}" in text
+    assert cs.COARSE_WINDOWS < cs.MAX_WINDOWS and cs.FILL < cs.BIG_CAP
+
+
+def _sequential_sum(x: torch.Tensor, h: torch.Tensor, b: int) -> torch.Tensor:
+    """Each slot from 0 over ascending i, one float32 addition at a time."""
+    out = torch.zeros((x.shape[0], b), dtype=torch.float32)
+    for i, j in enumerate(h.tolist()):
+        if 0 <= j < b:
+            out[:, j] = out[:, j] + x[:, i]
+    return out
+
+
+@pytest.mark.parametrize("g,n,b,hash_kind", [
+    (1, 3000, 1, "zero"), (3, 2000, 17, "random"), (2, 300, 4096, "random"),
+    (13, 500, 300, "random"), (2, 0, 5, "random"), (2, 400, 50, "outside")])
+def test_countsketch_ordered_is_a_sequential_loop(g, n, b, hash_kind):
+    """The order the route must reproduce bit for bit: the ordered reference
+    equals a sequential loop over i exactly, and the plain version within
+    the tolerance of the same terms in another order."""
+    gen = torch.Generator().manual_seed(n + b)
+    x = torch.randn((g, n), generator=gen)
+    h = (torch.zeros(n, dtype=torch.int64) if hash_kind == "zero"
+         else torch.randint(-5 if hash_kind == "outside" else 0,
+                            b + 5 if hash_kind == "outside" else b, (n,), generator=gen))
+    got = cs.countsketch_clients_ordered(x, h, b)
+    assert torch.equal(got, _sequential_sum(x, h, b))
+    if hash_kind != "outside":
+        scale = float(cs.countsketch_clients_plain(x.abs(), h, b).max())
+        torch.testing.assert_close(got, cs.countsketch_clients_plain(x, h, b),
+                                   rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("x,h,b,match", [
+    (torch.zeros(8), torch.zeros(8, dtype=torch.int32), 4, "x must be"),
+    (torch.zeros((2, 8), dtype=torch.float64), torch.zeros(8, dtype=torch.int32),
+     4, "x must be"),
+    (torch.zeros((8, 2)).t(), torch.zeros(8, dtype=torch.int32), 4, "x must be"),
+    (torch.zeros((2, 8)), torch.zeros(7, dtype=torch.int32), 4, "h must be"),
+    (torch.zeros((2, 8)), torch.zeros(16, dtype=torch.int32)[::2], 4, "h must be"),
+    (torch.zeros((2, 8)), torch.zeros(8), 4, "h must be an integer"),
+    (torch.zeros((2, 8)), torch.zeros(8, dtype=torch.int32), -1, "int32"),
+    (torch.zeros((2, 8)), torch.zeros(8, dtype=torch.int32), 1 << 31, "int32"),
+    (torch.zeros((2, 8)), torch.zeros(8, dtype=torch.int32), 4, "CUDA device")])
+def test_countsketch_cuda_checks_its_arguments(x, h, b, match):
+    """The count-sketch route raises on what its kernels do not take, before
+    anything reaches the card."""
+    with pytest.raises(ValueError, match=match):
+        cs.countsketch_clients_cuda(x, h, b)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions():
     """Each kernel against its plain version at the reference's test
@@ -85,6 +172,72 @@ def test_kernels_match_plain_versions():
         x = torch.randn(shape, generator=gen, device="cuda")
         torch.testing.assert_close(fw.fwht_rows_cuda(x), fw.fwht_plain(x),
                                    rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,b,hash_kind", [
+    (1, 100_000, 1, "zero"), (1, 100_000, 300, "zero"),
+    (1, 17, 1 << 22, "random"), (1, 70_779, 1 << 22, "random"),
+    (13, 5000, 300, "random"), (3, 0, 64, "random"),
+    (7, cs.COARSE_MIN_N + 12_345, 30_000, "random"),
+    (2, cs.COARSE_MIN_N + 12_345, 5_000, "random"),
+    (1, cs.COARSE_MIN_N + 12_345, 600, "random"),
+    (1, cs.COARSE_MIN_N + 12_345, 100, "random")])
+def test_countsketch_edge_cases_match_plain(g, n, b, hash_kind):
+    """The count-sketch route where its windows are long (all of n in one
+    slot), where b >> n (windows of many slots), at G = 13 (three chunks of
+    rows), at n = 0, and on the large-n route at G = 7, with slots of ~200
+    and ~1,800 indices (ranked by a whole block) and windows of ~10,600
+    (the long-window kernel).  Bit for bit the sum in ascending index order
+    (``countsketch_clients_ordered``, on the CPU); and the plain
+    ``index_add_``, the same float32 terms summed in another order (atomics),
+    within 1e-5 of the largest absolute slot sum."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n + b)
+    x = torch.randn((g, n), generator=gen, device="cuda")
+    h = (torch.zeros(n, dtype=torch.int64, device="cuda") if hash_kind == "zero"
+         else torch.randint(0, b, (n,), generator=gen, device="cuda"))
+    got = cs.countsketch_clients_cuda(x, h, b)
+    assert torch.equal(got.cpu(), cs.countsketch_clients_ordered(x.cpu(), h.cpu(), b))
+    scale = float(cs.countsketch_clients_plain(x.abs(), h, b).max())
+    torch.testing.assert_close(got, cs.countsketch_clients_plain(x, h, b),
+                               rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,b", [(5, 200_000, 4_000), (1, 70_779, 1 << 22),
+                                   (5, cs.COARSE_MIN_N + 12_345, 30_000)])
+def test_countsketch_two_calls_bitwise_equal(g, n, b):
+    """The route places records in an order that depends on the run (on
+    both routes), but sums each slot in ascending index order: the same
+    bits every call, those of the ordered sum."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(g + n)
+    x = torch.randn((g, n), generator=gen, device="cuda")
+    h = torch.randint(0, b, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    first = cs.countsketch_clients_cuda(x, h, b)
+    assert torch.equal(first, cs.countsketch_clients_cuda(x, h, b))
+    assert torch.equal(first, cs.countsketch_clients_ordered(x, h, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,b,calls,device_launches", [
+    (0, 1000, 64, 0, 0),                  # nothing to compute: no launch
+    (3, 0, 64, 1, 2),                     # small-n route: memset + kernel
+    (1, 70_779, 1 << 22, 1, 2),
+    # large-n route, two chunks of rows: memset + histogram, the scan's 3,
+    # then per chunk 2 grouping passes (and a memset of the cursors after
+    # the first) and the 2 reduce kernels
+    (7, cs.COARSE_MIN_N + 12_345, 30_000, 1, 2 + 3 + 4 + 5)])
+def test_countsketch_counts_what_it_launches(g, n, b, calls, device_launches):
+    """``LAUNCHES`` counts calls that launched, ``DEVICE_LAUNCHES`` the
+    kernels and memsets each entry point reports it put on the stream."""
+    _need_card()
+    x = torch.randn((g, n), device="cuda")
+    h = torch.randint(0, b, (n,), device="cuda")
+    cs.LAUNCHES.n = cs.DEVICE_LAUNCHES.n = 0
+    cs.countsketch_clients_cuda(x, h, b)
+    assert (cs.LAUNCHES.n, cs.DEVICE_LAUNCHES.n) == (calls, device_launches)
 
 
 @pytest.mark.cuda
