@@ -12,9 +12,11 @@ Phases (any failed check or exception exits nonzero):
    library call's time where one exists, and the least time the card could
    take (``bound_ms``); for the count-sketch route also its stages' times,
    its device launches per call, skewed and b >> n cases, and two calls
-   held bitwise equal at both main-path shapes; then the Gaussian pair (B3
-   sk, B4 desk) at the test shapes, and at full width: every live leaf of
-   the lm25m plan at
+   held bitwise equal at both main-path shapes; for the FWHT every (R, C)
+   group of an lm25m SRHT round (sk and desk) and edge shapes, each bit for
+   bit, timed with the L2 cache flushed before each call, and the round's
+   sum against its bound; then the Gaussian pair (B3 sk, B4 desk) at the
+   test shapes, and at full width: every live leaf of the lm25m plan at
    ratio 0.02 through ``kernels.ops.gaussian_sk``/``gaussian_desk``;
 3. two SAFL rounds of bert_100m SMOKE on the card (kernels) against the
    same rounds on the CPU (plain versions), from the same weights, with
@@ -237,16 +239,65 @@ def cs_stages(x: torch.Tensor, h: torch.Tensor, b: int,
 
 
 def check_fwht(x: torch.Tensor) -> float:
+    """B2 against its plain version: the same additions in the same order,
+    so bit for bit (max_abs_err 0), and within rel 1e-6 as before."""
     got = fw.fwht_rows_cuda(x)
     want = fw.fwht_plain(x)
     torch.cuda.synchronize()
     err, rel = _errors(got, want)
-    # the kernel runs the plain version's additions in the same order
     tol = 1e-6
+    exact = torch.equal(got, want)
     print(f"fwht {tuple(x.shape)}: max_abs_err {err:.3e} max_rel_err "
-          f"{rel:.3e} (tolerance: rel {tol:.0e})")
+          f"{rel:.3e} (tolerance: rel {tol:.0e}); bitwise equal: {exact}")
     check(rel <= tol, f"fwht {tuple(x.shape)}: max rel err {rel:.3e} > {tol:.0e}")
+    check(exact and err == 0, f"fwht {tuple(x.shape)}: differs from the plain version")
     return err
+
+
+def cold_ms(fn, flush: torch.Tensor, iters: int = 5) -> float:
+    """Mean device ms of fn() by CUDA events around each call alone, with
+    the L2 cache flushed (flush.zero_(), over its 50 MB) before each."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def fwht_bound(x: torch.Tensor) -> tuple[float, str]:
+    """Each element read once and written once; log2(C) additions each."""
+    return bound_ms(2 * x.numel() * 4, x.numel() * math.log2(x.shape[1]))
+
+
+def time_fwht(x: torch.Tensor, flush: torch.Tensor, what: str) -> tuple[float, float]:
+    """B2's and the plain version's cold-L2 ms on x, printed with the bound
+    and the launches of one call; returns (ms, plain_ms)."""
+    n0, d0 = fw.LAUNCHES.n, fw.DEVICE_LAUNCHES.n
+    fw.fwht_rows_cuda(x)
+    calls, device = fw.LAUNCHES.n - n0, fw.DEVICE_LAUNCHES.n - d0
+    ms = cold_ms(lambda: fw.fwht_rows_cuda(x), flush)
+    plain_ms = cold_ms(lambda: fw.fwht_plain(x), flush, 2)
+    bms, by = fwht_bound(x)
+    print(f"fwht {what} {tuple(x.shape)}: ms {ms:.4f}; plain_ms {plain_ms:.4f}; "
+          f"bound_ms {bms:.4f} ({by}); {calls} kernel launch, {device} device "
+          f"launches (kernels and memsets) per call; L2 flushed before each "
+          f"timed call")
+    return ms, plain_ms
+
+
+# B2 beyond the round's groups: a row of 2, one short of and one past a
+# row tile, a long row of 2 * 4096, the longest row (4096^2), 33 rows of
+# 4096, and the reference's test shapes
+FWHT_EDGE_SHAPES = ((1, 2), (3, 2048), (7, 8192), (1, 1 << 24), (33, 4096),
+                    (1, 8), (9, 4096), (20, 512), (1, 32768))
 
 
 # B1 cases beyond the reference's test shapes: (G, n, b, hash), where the
@@ -270,8 +321,6 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
         h = (torch.zeros(n, dtype=torch.int64, device=dev) if kind == "zero"
              else torch.randint(0, b, (n,), generator=gen, device=dev))
         check_countsketch(x, h, b)
-    for shape in ((1, 8), (9, 4096), (20, 512), (1, 32768), (1, 1 << 24)):
-        check_fwht(torch.randn(shape, generator=gen, device=dev))
 
     # B1 at the main path's shape, with a real round's hash
     plan = make_packing_plan(MAIN_SKETCH, param_shape_tree(bert_100m.CONFIG))
@@ -353,25 +402,46 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
                         bound_ms=bms, bound_by=by, library_ms=lib_ms))
     del rp, x, zeros
 
+    # B2 at every (R, n2) group of the round, sk (G * L rows) and desk (L),
+    # then the edge shapes; each bit for bit, timed with a cold L2
     groups: dict[int, int] = {}
     for op in live:
         groups[op.n2] = groups.get(op.n2, 0) + 1
-    err = 0.0
-    for n2, rows in sorted(groups.items()):     # the last, largest, is timed
-        for r in (rows, G_CLIENTS * rows):
-            err = max(err, check_fwht(torch.randn((r, n2), generator=gen,
-                                                  device=dev)))
-    x = torch.randn((G_CLIENTS * rows, n2), generator=gen, device=dev)
-    ms = cuda_ms(lambda: fw.fwht_rows_cuda(x))
-    plain_ms = cuda_ms(lambda: fw.fwht_plain(x))
-    bms, by = bound_ms(2 * x.numel() * 4, x.numel() * math.log2(n2))
-    print(f"fwht SRHT sk group {tuple(x.shape)}: ms {ms:.4f}; plain_ms "
-          f"{plain_ms:.4f}; bound_ms {bms:.4f} ({by})")
+    flush = torch.empty(64 << 20, device=dev)     # 256 MB, over the L2
+    err, ms_sum, bound_sum = 0.0, 0.0, 0.0
+    for n2, rows in sorted(groups.items()):     # the last, largest, is the entry's
+        for r, what in ((G_CLIENTS * rows, "SRHT sk group"), (rows, "SRHT desk group")):
+            x = torch.randn((r, n2), generator=gen, device=dev)
+            err = max(err, check_fwht(x))
+            ms, plain_ms = time_fwht(x, flush, what)
+            ms_sum += ms
+            bound_sum += fwht_bound(x)[0]
+            if r == G_CLIENTS * rows:
+                big = (x.shape, ms, plain_ms)
+            del x
+    print(f"fwht one lm25m SRHT round ({2 * len(groups)} calls): ms {ms_sum:.4f} "
+          f"(sum of the cold-L2 times above); bound_ms {bound_sum:.4f}")
+    for shape in FWHT_EDGE_SHAPES:
+        x = torch.randn(shape, generator=gen, device=dev)
+        err = max(err, check_fwht(x))
+        same = torch.equal(fw.fwht_rows_cuda(x), fw.fwht_rows_cuda(x))
+        check(same, f"fwht {shape}: two calls differ")
+        if shape[1] > fw.MAX_C:
+            time_fwht(x, flush, "edge")
+    shape, ms, plain_ms = big
+    x = torch.randn(shape, generator=gen, device=dev)
+    same = torch.equal(fw.fwht_rows_cuda(x), fw.fwht_rows_cuda(x))
+    warm = cuda_ms(lambda: fw.fwht_rows_cuda(x))
+    print(f"fwht SRHT sk group {tuple(shape)}: two calls bitwise equal: {same}; "
+          f"ms {warm:.4f} back to back (warm), {ms:.4f} cold")
+    check(same, f"fwht {tuple(shape)}: two calls differ")
+    bms, by = fwht_bound(x)
     entries.append(dict(name="fwht_rows", route="cuda",
                         source="src/repro_torch/csrc/fwht.cu",
                         replaces="src/repro/kernels/fwht.py:26", launches=0,
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=None))
+    del x, flush
     return entries
 
 
@@ -727,7 +797,8 @@ def main() -> int:
     print("== phase 5: lm25m, SRHT ==")
     n = phase_full("lm25m", LM25M, SRHT_SKETCH,
                    {"countsketch": cs.LAUNCHES, "fwht": fw.LAUNCHES,
-                    "countsketch_device": cs.DEVICE_LAUNCHES})
+                    "countsketch_device": cs.DEVICE_LAUNCHES,
+                    "fwht_device": fw.DEVICE_LAUNCHES})
     print_cs_launches("lm25m", n)
     entries[1]["launches"] = n["countsketch"]
     entries[2]["launches"] = n["fwht"]

@@ -154,6 +154,92 @@ def test_countsketch_cuda_checks_its_arguments(x, h, b, match):
         cs.countsketch_clients_cuda(x, h, b)
 
 
+@pytest.mark.parametrize("log_c", range(25))
+def test_fwht_plan_runs_every_stage_once_in_order(log_c):
+    """The property behind B2's bit-for-bit equality: for every power-of-two
+    row length up to ``MAX_N``, the passes and the levels inside them
+    (registers, lanes, shared memory) run the stages h = 1 .. C/2 once each,
+    in ascending order; and each pass's layout fits its kernel."""
+    c = 1 << log_c
+    n1, c1 = fw.split(c)
+    assert n1 * c1 == c and c1 <= fw.MAX_C
+    plan = fw.stage_bits(c)
+    assert [b for _, _, bits in plan for b in bits] == list(range(log_c))
+    assert [p for p, _, _ in plan] == ["rows"] * 3 + ["columns"] * 3 * (n1 > 1)
+    if n1 == 1:
+        return
+    assert n1 >= fw.MIN_N1 and c1 >= 1024
+    lay = fw.col_layout(n1.bit_length() - 1)
+    assert 0 <= lay["WB"] <= lay["RB"] and lay["QB"] >= 0 and lay["LB"] + lay["QL"] == 5
+    assert lay["QB"] - lay["QL"] + lay["WB"] == 3       # 8 warps of a block
+    assert lay["TC"] * n1 == lay["TILE"] and 4 <= lay["TC"] <= c1
+    assert fw.chunk_rows(c) * c * 4 <= fw.L2_CHUNK_BYTES or fw.chunk_rows(c) == 1
+
+
+def test_fwht_limits_come_from_the_source():
+    """The wrapper's limits and layout constants are the kernels' own, read
+    from their source."""
+    text = (pathlib.Path(fw.build.CSRC) / "fwht.cu").read_text()
+    for name, value in (("FWHT_MAX_C", fw.MAX_C), ("FWHT_THREADS", fw.THREADS),
+                        ("FWHT_ROW_ELEMS", fw.ROW_ELEMS), ("FWHT_COL_VECS", fw.COL_VECS),
+                        ("FWHT_MIN_N1", fw.MIN_N1)):
+        assert f"#define {name} {value} " in text
+    assert fw.MAX_N == fw.MAX_C ** 2
+
+
+@pytest.mark.parametrize("x,match", [
+    (torch.zeros((2, 8), dtype=torch.float64), "x must be"),
+    (torch.zeros(8), "x must be"),
+    (torch.zeros((8, 4)).t(), "x must be"),
+    (torch.zeros((2, 12)), "power of 2"),
+    (torch.empty((1, 2 * fw.MAX_N), device="meta"), "power of 2"),
+    (torch.zeros((2, 8)), "CUDA tensor")])
+def test_fwht_cuda_checks_its_arguments(x, match):
+    """B2 raises on what its kernels do not take, before anything reaches
+    the card."""
+    with pytest.raises(ValueError, match=match):
+        fw.fwht_rows_cuda(x)
+
+
+# B2 on the card: edge shapes, and each (R, C) group of an lm25m SRHT round
+# (n2 = 512, 4096, 2^20, 2^21, 2^22) with small R
+FWHT_CARD_SHAPES = [(1, 1), (1, 2), (3, 4), (5, 16), (3, 2048), (7, 8192), (33, 4096),
+                    (2, 16384), (1, 1 << 24), (3, 512), (2, 4096), (2, 1 << 20),
+                    (3, 1 << 21), (2, 1 << 22)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FWHT_CARD_SHAPES)
+def test_fwht_bitwise_equals_plain(shape):
+    """The kernels run the plain version's additions in its order: equal
+    bit for bit, also for a view at an offset, and two calls alike."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(shape[0] + shape[1])
+    x = torch.randn(shape, generator=gen, device="cuda")
+    want = fw.fwht_plain(x)
+    first = fw.fwht_rows_cuda(x)
+    assert torch.equal(first, want)
+    assert torch.equal(fw.fwht_rows_cuda(x), first)
+    flat = torch.randn(x.numel() + 1, generator=gen, device="cuda")
+    view = flat[1:].view(shape)
+    assert torch.equal(fw.fwht_rows_cuda(view), fw.fwht_plain(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,calls,device_launches", [
+    ((0, 64), 0, 0), ((3, 0), 0, 0),      # nothing to compute: no launch
+    ((3, 4096), 1, 1), ((40, 8), 1, 1),  # one pass
+    ((2, 1 << 22), 1, 2)])                # memset of the counters + the kernel
+def test_fwht_counts_what_it_launches(shape, calls, device_launches):
+    """``LAUNCHES`` counts calls that launched, ``DEVICE_LAUNCHES`` the
+    kernels and memsets each call put on the stream."""
+    _need_card()
+    x = torch.randn(shape, device="cuda")
+    fw.LAUNCHES.n = fw.DEVICE_LAUNCHES.n = 0
+    fw.fwht_rows_cuda(x)
+    assert (fw.LAUNCHES.n, fw.DEVICE_LAUNCHES.n) == (calls, device_launches)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions():
     """Each kernel against its plain version at the reference's test
