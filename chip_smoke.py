@@ -20,17 +20,28 @@ Phases (any failed check or exception exits nonzero):
    ratio 0.02 through ``kernels.ops.gaussian_sk``/``gaussian_desk``;
 3. two SAFL rounds of bert_100m SMOKE on the card (kernels) against the
    same rounds on the CPU (plain versions), from the same weights, with
-   count-sketch, with SRHT and with the Gaussian family;
+   count-sketch, with SRHT and with the Gaussian family; and two SACFL
+   (clipped) rounds under partial participation, the cohort masks of the
+   two devices bit for bit;
 4. the main path: three SAFL rounds of bert_100m at full width and depth,
    independent-hash count-sketch through the count-sketch kernel;
 5. three SAFL rounds of the lm25m model with SRHT through the FWHT kernel
-   (sk and desk) and the count-sketch kernel (the desk's scatter).
+   (sk and desk) and the count-sketch kernel (the desk's scatter);
+6. the non-i.i.d. path: three SACFL rounds of bert_100m at full width
+   under uniform participation (a cohort of 2 of the 5 clients), through
+   the count-sketch kernel, with each client's pre-clip delta norm
+   against the clip radius on the first round;
+7. resume: six SAFL rounds of bert_100m SMOKE on the card under
+   participation and a cosine server LR, checkpointed after round 4,
+   restored and resumed; bit for bit the uninterrupted run.
 
-Phases 4 and 5 end with a breakdown of one round's time by step.
+Phases 4, 5 and 6 end with a breakdown of one round's time by step, and
+check each round's uplink bits (per-client payload times the cohort).
 
-The launch counts of the kernels are set to 0 just before phases 4 and 5
-and the Gaussian full-width run, and read just after each; the
-``kernels`` line has one entry per kernel and path.  The last lines are a
+The launch counts of the kernels are set to 0 just before phases 4, 5
+and 6 and the Gaussian full-width run, and read just after each; the
+``kernels`` line has one entry per kernel and path (the count-sketch's
+main-path entry counts phases 4 and 6).  The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": ...}``.  Needs one CUDA card; exits nonzero
 without one.
@@ -42,8 +53,10 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -53,15 +66,21 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import prng  # noqa: E402
+from repro_torch.checkpoint.io import (restore_checkpoint,  # noqa: E402
+                                       save_checkpoint)
 from repro_torch.configs import bert_100m  # noqa: E402
+from repro_torch.core import clipped as clipped_module  # noqa: E402
 from repro_torch.core import safl as safl_module  # noqa: E402
 from repro_torch.core.adaptive import AdaConfig  # noqa: E402
+from repro_torch.core.clipped import (ClippedSAFLConfig,  # noqa: E402
+                                      clipped_safl_round)
 from repro_torch.core.packed import (derive_round_params,  # noqa: E402
                                      make_packing_plan)
 from repro_torch.core.safl import (SAFLConfig, init_safl,  # noqa: E402
                                    safl_round, uplink_bits_per_round)
 from repro_torch.core.sketch import SketchConfig  # noqa: E402
 from repro_torch.data.synthetic import BigramLMData, LMDataConfig  # noqa: E402
+from repro_torch.fed import UniformParticipation  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import countsketch as cs  # noqa: E402
 from repro_torch.kernels import fwht as fw  # noqa: E402
@@ -71,6 +90,7 @@ from repro_torch.launch.driver import run_scan  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.model import (init_params, loss_fn,  # noqa: E402
                                      param_shapes)
+from repro_torch.optim.schedules import cosine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -84,6 +104,8 @@ LANES = {"int": 64, "fp32": 128, "sfu": 16}
 # log, sqrt and cos and the two uint32 -> float conversions; see PERF.md
 GAUSS_OPS = {"int": 22, "fp32": 12, "sfu": 5}
 G_CLIENTS = 5               # clients per round (the paper's section 5 setup)
+CLIP_TAU = 1.0              # SACFL's l2 clip radius of a client's delta
+SACFL_TAUS = (CLIP_TAU, 0.5)  # phase 3's radii: the bench's, and one that clips
 
 # examples/train_lm.py's default model, the SRHT phase's model: bert_100m's
 # stacked leaves exceed the 16M-element limit of the FWHT kernel path
@@ -610,20 +632,83 @@ def safl_cfg(sketch: SketchConfig, server: str = "amsgrad") -> SAFLConfig:
                       client_lr=0.5, local_steps=2)
 
 
+def per_client_bits(model: ModelConfig, sketch: SketchConfig) -> int:
+    return uplink_bits_per_round(safl_cfg(sketch), param_shape_tree(model))
+
+
 def run_rounds(model: ModelConfig, sketch: SketchConfig, data: LMDataConfig,
-               device: str, rounds: int, per_round=None, server="amsgrad"):
+               device: str, rounds: int, per_round=None, server="amsgrad",
+               clip_tau=None, policy=None):
+    """``rounds`` rounds through ``run_scan``, one round a chunk: SAFL, or
+    SACFL with ``clip_tau``; every client in every round, or the cohorts of
+    ``policy``.  ``uplink_bits`` bills the clients that transmit."""
     cfg = safl_cfg(sketch, server)
     params = init_params(model, torch.Generator().manual_seed(0), device=device)
     opt = init_safl(cfg, params)
     sampler = BigramLMData(data).device_sampler(batch_per_client=8,
                                                 local_steps=2)
     plan = make_packing_plan(cfg.sketch, params)
-    round_fn = functools.partial(safl_round, cfg,
-                                 lambda p, b: loss_fn(model, p, b), plan=plan)
-    bits = uplink_bits_per_round(cfg, params, cohort_size=data.num_clients)
+    loss = lambda p, b: loss_fn(model, p, b)
+    if clip_tau is None:
+        round_fn = functools.partial(safl_round, cfg, loss, plan=plan)
+    else:
+        round_fn = functools.partial(
+            clipped_safl_round, ClippedSAFLConfig(base=cfg, clip_tau=clip_tau),
+            loss, plan=plan)
+    # under a policy the driver multiplies the per-client bits by the cohort
+    bits = uplink_bits_per_round(
+        cfg, params, cohort_size=1 if policy else data.num_clients)
     return run_scan(round_fn, sampler, params, opt, rounds=rounds,
                     key=prng.key(0), chunk_size=1, bits_per_round=bits,
-                    on_chunk=per_round)
+                    on_chunk=per_round, participation=policy)
+
+
+class ClipNorms:
+    """Within ``with``: each client's pre-clip delta norm (``clip_delta``'s
+    global norm) and ``clip_trigger`` for the first ``count`` clients that
+    SACFL clips, that is the first round's."""
+
+    def __init__(self, count: int = G_CLIENTS):
+        self.count, self.seen = count, []
+
+    def __enter__(self):
+        self.clip_delta = clipped_module.clip_delta
+
+        def recording(cfg, delta):
+            if len(self.seen) < self.count:
+                nrm = torch.sqrt(sum(torch.sum(x.to(torch.float32) ** 2)
+                                     for x in delta.values()) + 1e-12)
+                self.seen.append((float(nrm),
+                                  float(clipped_module.clip_trigger(cfg, delta))))
+            return self.clip_delta(cfg, delta)
+
+        clipped_module.clip_delta = recording
+        return self
+
+    def __exit__(self, *exc):
+        clipped_module.clip_delta = self.clip_delta
+
+    def report(self, what: str, tau: float) -> None:
+        print(f"{what} round 0: pre-clip delta norm against tau " + ", ".join(
+            f"client {c} {nrm:.4f} {'>' if trig else '<='} {tau}"
+            for c, (nrm, trig) in enumerate(self.seen)))
+        check(len(self.seen) == self.count,
+              f"{what}: {len(self.seen)} clipped clients in round 0")
+        for nrm, trig in self.seen:
+            check(math.isfinite(nrm) and trig == float(nrm > tau),
+                  f"{what}: clip_trigger {trig} disagrees with the norm {nrm}")
+
+
+class RecordedPolicy:
+    """A participation policy that keeps every mask it hands the driver."""
+
+    def __init__(self, policy):
+        self.policy, self.masks = policy, []
+
+    def mask(self, t: int, device):
+        m = self.policy.mask(t, device)
+        self.masks.append(m)
+        return m
 
 
 # (sketch, ratio, server optimizer) of each SMOKE run.  The Gaussian
@@ -638,40 +723,83 @@ SMOKE_RUNS = ((MAIN_SKETCH, 0.05, "amsgrad"), (SRHT_SKETCH, 0.05, "amsgrad"),
               (dataclasses.replace(GAUSS_SKETCH, use_kernels=True), 0.002, "sgd"))
 
 
+def compare_card_cpu(what: str, card, cpu) -> None:
+    """Losses and parameters of one run on the card against the CPU's."""
+    (pg, _, hg), (pc, _, hc) = card, cpu
+    print(f"{what}: loss card {hg['loss']} cpu {hc['loss']}")
+    check(np.allclose(hg["loss"], hc["loss"], rtol=1e-4, atol=1e-4),
+          f"SMOKE {what} losses differ between card and CPU")
+    worst = 0.0
+    for k in pc:
+        a, b = pg[k].cpu(), pc[k]
+        worst = max(worst, float((a - b).abs().max()))
+        check(torch.allclose(a, b, rtol=TRAJ_RTOL, atol=TRAJ_ATOL),
+              f"SMOKE {what} params differ between card and CPU at {k}")
+    print(f"{what}: params max abs diff card vs cpu {worst:.3e} "
+          f"(tolerance atol {TRAJ_ATOL}, rtol {TRAJ_RTOL})")
+
+
+def smoke_data() -> LMDataConfig:
+    return LMDataConfig(vocab_size=256, seq_len=32, num_clients=G_CLIENTS,
+                        heterogeneity=0.3, alpha=0.02)
+
+
 def phase_card_vs_cpu() -> None:
     print("== phase 3: bert_100m SMOKE, card (kernels) against CPU (plain) ==")
-    data = LMDataConfig(vocab_size=256, seq_len=32, num_clients=G_CLIENTS,
-                        heterogeneity=0.3, alpha=0.02)
+    data = smoke_data()
     for sketch, ratio, server in SMOKE_RUNS:
         sk = dataclasses.replace(sketch, ratio=ratio, min_b=16)
         t0 = time.perf_counter()
-        pg, og, hg = run_rounds(bert_100m.SMOKE, sk, data, "cuda", 2,
-                                server=server)
+        card = run_rounds(bert_100m.SMOKE, sk, data, "cuda", 2, server=server)
         t1 = time.perf_counter()
-        pc, oc, hc = run_rounds(bert_100m.SMOKE, sk, data, "cpu", 2,
-                                server=server)
-        print(f"{sk.kind} (ratio {ratio}, server {server}): loss card "
-              f"{hg['loss']} cpu {hc['loss']}; card {t1 - t0:.1f} s, cpu "
-              f"{time.perf_counter() - t1:.1f} s")
-        check(np.allclose(hg["loss"], hc["loss"], rtol=1e-4, atol=1e-4),
-              f"SMOKE {sk.kind} losses differ between card and CPU")
-        worst = 0.0
-        for k in pc:
-            a, b = pg[k].cpu(), pc[k]
-            worst = max(worst, float((a - b).abs().max()))
-            check(torch.allclose(a, b, rtol=TRAJ_RTOL, atol=TRAJ_ATOL),
-                  f"SMOKE {sk.kind} params differ between card and CPU at {k}")
-        print(f"{sk.kind}: params max abs diff card vs cpu {worst:.3e} "
-              f"(tolerance atol {TRAJ_ATOL}, rtol {TRAJ_RTOL})")
+        cpu = run_rounds(bert_100m.SMOKE, sk, data, "cpu", 2, server=server)
+        print(f"{sk.kind} (ratio {ratio}, server {server}): card {t1 - t0:.1f} s, "
+              f"cpu {time.perf_counter() - t1:.1f} s")
+        compare_card_cpu(sk.kind, card, cpu)
+
+    # SACFL under partial participation: the cohorts the driver handed the
+    # rounds on each device, bit for bit.  These SMOKE clients' deltas stay
+    # inside the bench's radius 1.0, so a second pair clips at 0.5
+    sk = dataclasses.replace(MAIN_SKETCH, ratio=0.05, min_b=16)
+    for tau in SACFL_TAUS:
+        what = f"sacfl (tau {tau}, cohort 2 of {G_CLIENTS})"
+        pols = {d: RecordedPolicy(UniformParticipation(G_CLIENTS, frac=0.4, seed=123))
+                for d in ("cuda", "cpu")}
+        with ClipNorms() as norms:
+            card = run_rounds(bert_100m.SMOKE, sk, data, "cuda", 2, clip_tau=tau,
+                              policy=pols["cuda"])
+        cpu = run_rounds(bert_100m.SMOKE, sk, data, "cpu", 2, clip_tau=tau,
+                         policy=pols["cpu"])
+        masks = {d: [m.cpu() for m in p.masks] for d, p in pols.items()}
+        print(f"{what}: masks card {[m.tolist() for m in masks['cuda']]}; "
+              f"uplink_bits {card[2]['uplink_bits']}")
+        norms.report(what, tau)
+        check(len(masks["cuda"]) == len(masks["cpu"]) == 2
+              and all(torch.equal(a, b) for a, b in zip(masks["cuda"], masks["cpu"])),
+              f"SMOKE {what}: cohort masks differ between card and CPU")
+        check(all(float(m.sum()) == 2.0 for m in masks["cuda"]),
+              f"SMOKE {what}: a cohort is not 2 clients")
+        compare_card_cpu(what, card, cpu)
+    check(any(trig for _, trig in norms.seen),
+          f"SMOKE sacfl: no client clipped at tau {SACFL_TAUS[-1]}")
+
+
+def full_data() -> LMDataConfig:
+    return LMDataConfig(vocab_size=4096, seq_len=128, num_clients=G_CLIENTS,
+                        heterogeneity=0.3, alpha=0.02)
 
 
 def phase_full(name: str, model: ModelConfig, sketch: SketchConfig,
-               counters: dict[str, build.LaunchCount]) -> dict[str, int]:
-    """Three rounds through ``run_scan``; every count in ``counters`` is
-    set to 0 just before and must grow in every round.  Returns the
-    counts after the run."""
-    data = LMDataConfig(vocab_size=4096, seq_len=128, num_clients=G_CLIENTS,
-                        heterogeneity=0.3, alpha=0.02)
+               counters: dict[str, build.LaunchCount], **round_kw) -> dict[str, int]:
+    """Three rounds through ``run_scan`` (``round_kw``: SACFL's clip radius
+    and a participation policy, as ``run_rounds`` takes them); every count
+    in ``counters`` is set to 0 just before and must grow in every round,
+    and each round's uplink bits must be the per-client payload times the
+    cohort.  Returns the counts after the run."""
+    data = full_data()
+    policy = round_kw.get("policy")
+    cohort = policy.cohort_size if policy else G_CLIENTS
+    want_bits = float(np.float32(per_client_bits(model, sketch) * cohort))
     torch.cuda.reset_peak_memory_stats()
     marks = []
 
@@ -684,74 +812,177 @@ def phase_full(name: str, model: ModelConfig, sketch: SketchConfig,
     for c in counters.values():
         c.n = 0
     t0 = time.perf_counter()
-    params, _, hist = run_rounds(model, sketch, data, "cuda", 3, per_round)
+    params, _, hist = run_rounds(model, sketch, data, "cuda", 3, per_round,
+                                 **round_kw)
     torch.cuda.synchronize()
     launches = {k: c.n for k, c in counters.items()}
     d = sum(p.numel() for p in params.values())
     print(f"{name}: d = {d:,} parameters, launches in the run: {launches}")
-    prev_t, prev_n = None, {k: 0 for k in counters}
+    prev_t, prev_n, steady = None, {k: 0 for k in counters}, []
     for t, tw, n, loss, bits in marks:
-        ms = "" if prev_t is None else f"  round ms {(tw - prev_t) * 1e3:.1f}"
+        ms = ""
+        if prev_t is not None:
+            steady.append((tw - prev_t) * 1e3)
+            ms = f"  round ms {steady[-1]:.1f}"
         print(f"{name} round {t - 1}: loss {loss:.5f}  uplink_bits {bits:.0f}  "
               f"kernel launches {n}{ms}")
         check(math.isfinite(loss), f"{name}: loss is not finite")
+        check(bits == want_bits, f"{name}: uplink_bits {bits} in round {t - 1}, "
+              f"not the per-client payload times {cohort} ({want_bits})")
         for k in counters:
             check(n[k] >= prev_n[k] + 1, f"{name}: {k} launch count did not "
                   f"grow in round {t - 1}")
         prev_t, prev_n = tw, n
+    stats = torch.cuda.memory_stats()
     print(f"{name}: first round (with set-up) "
-          f"{(marks[0][1] - t0) * 1e3:.1f} ms; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{(marks[0][1] - t0) * 1e3:.1f} ms; steady round ms "
+          f"{', '.join(f'{x:.1f}' for x in steady)}; uplink_bits a round "
+          f"{want_bits:.0f} (cohort {cohort}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; allocator "
+          f"cudaMalloc calls {stats.get('num_device_alloc')}, retries after "
+          f"freeing its cache {stats.get('num_alloc_retries')} (since the start)")
     for k, v in params.items():
         check(bool(torch.isfinite(v).all()), f"{name}: param {k} not finite")
     del params
-    round_breakdown(name, model, sketch, data)
+    round_breakdown(name, model, sketch, data, **round_kw)
     return launches
 
 
-# the calls ``safl_round`` makes, timed one by one in ``round_breakdown``
-ROUND_STEPS = ("client_delta", "derive_round_params", "sk_packed_clients",
-               "desk_packed", "apply_update")
+# the calls a round makes, timed one by one in ``round_breakdown``: those of
+# ``safl_round``, and for SACFL's round also the clip and its server step
+ROUND_STEPS = tuple((safl_module, s) for s in (
+    "client_delta", "derive_round_params", "sk_packed_clients", "desk_packed",
+    "apply_update"))
+CLIPPED_STEPS = ROUND_STEPS[:-1] + ((clipped_module, "clip_delta"),
+                                    (clipped_module, "apply_update"))
 
 
 def round_breakdown(name: str, model: ModelConfig, sketch: SketchConfig,
-                    data: LMDataConfig) -> None:
+                    data: LMDataConfig, **round_kw) -> None:
     """Where one round's time goes: two more rounds through ``run_scan``,
-    with each call of the real ``safl_round`` to a step in ``ROUND_STEPS``
-    timed on the host clock, the device synchronised around it.  The
-    second round is printed; ``rest`` is what the steps leave of it
-    (sampling, stacking the deltas, the cohort mean, the driver)."""
+    with each call of the real round to a step in ``ROUND_STEPS`` (SACFL:
+    ``CLIPPED_STEPS``) timed on the host clock, the device synchronised
+    around it.  The second round is printed, with the caching
+    allocator's calls to ``cudaMalloc`` in each step; ``rest`` is what the
+    steps leave of it (sampling, stacking the deltas, the cohort mean, the
+    driver)."""
     times: dict[str, float] = {}
-    rounds: list[tuple[float, dict]] = []
+    mallocs: dict[str, int] = {}
+    rounds: list[tuple[float, dict, dict]] = []
+
+    def device_allocs() -> int:
+        return torch.cuda.memory_stats().get("num_device_alloc", 0)
 
     def timed(step, fn):
         def call(*args, **kwargs):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            n0, t0 = device_allocs(), time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             times[step] = times.get(step, 0.0) + (time.perf_counter() - t0) * 1e3
+            mallocs[step] = mallocs.get(step, 0) + device_allocs() - n0
             return out
         return call
 
     def per_round(t, params, state, hist):
         torch.cuda.synchronize()
-        rounds.append((time.perf_counter(), dict(times)))
+        rounds.append((time.perf_counter(), dict(times), dict(mallocs)))
         times.clear()
+        mallocs.clear()
 
-    steps = {s: getattr(safl_module, s) for s in ROUND_STEPS}
-    for s, fn in steps.items():
-        setattr(safl_module, s, timed(s, fn))
+    steps = CLIPPED_STEPS if round_kw.get("clip_tau") is not None else ROUND_STEPS
+    saved = [(mod, s, getattr(mod, s)) for mod, s in steps]
+    for mod, s, fn in saved:
+        setattr(mod, s, timed(s, fn))
     try:
-        run_rounds(model, sketch, data, "cuda", 2, per_round)
+        run_rounds(model, sketch, data, "cuda", 2, per_round, **round_kw)
     finally:
-        for s, fn in steps.items():
-            setattr(safl_module, s, fn)
+        for mod, s, fn in saved:
+            setattr(mod, s, fn)
     total = (rounds[1][0] - rounds[0][0]) * 1e3
-    parts = dict(rounds[1][1])
+    parts, allocs = dict(rounds[1][1]), rounds[1][2]
     parts["rest"] = total - sum(parts.values())
-    print(f"{name} round breakdown (ms, round {total:.1f}): " + ", ".join(
-        f"{k} {v:.1f} ({100 * v / total:.0f}%)" for k, v in parts.items()))
+    print(f"{name} round breakdown (ms, round {total:.1f}; cudaMalloc calls): "
+          + ", ".join(f"{k} {v:.1f} ({100 * v / total:.0f}%; {allocs.get(k, '-')})"
+                      for k, v in parts.items()))
+
+
+def phase_noniid() -> dict[str, int]:
+    """Phase 6: SACFL at full width under uniform participation, with each
+    client's pre-clip delta norm (``clip_delta``'s global norm) against the
+    clip radius on the first round."""
+    print("== phase 6: non-i.i.d. SACFL, bert_100m full width ==")
+    policy = UniformParticipation(G_CLIENTS, frac=0.4, seed=123)
+    check(policy.cohort_size == 2, f"cohort {policy.cohort_size}, not 2")
+    with ClipNorms() as norms:
+        n = phase_full("bert_100m sacfl", bert_100m.CONFIG, MAIN_SKETCH,
+                       {"countsketch": cs.LAUNCHES,
+                        "countsketch_device": cs.DEVICE_LAUNCHES},
+                       clip_tau=CLIP_TAU, policy=policy)
+    print(f"bert_100m sacfl round 0: cohort {policy.mask(0, 'cpu').tolist()}")
+    norms.report("bert_100m sacfl", CLIP_TAU)
+    return n
+
+
+def phase_resume() -> None:
+    """Phase 7: a run stopped after round 4, checkpointed, restored and
+    resumed at ``start_round=4`` equals the uninterrupted run bit for bit."""
+    print("== phase 7: resume, bert_100m SMOKE on the card ==")
+    model, rounds, stop = bert_100m.SMOKE, 6, 4
+    cfg = safl_cfg(dataclasses.replace(MAIN_SKETCH, ratio=0.05, min_b=16))
+    sampler = BigramLMData(smoke_data()).device_sampler(batch_per_client=8,
+                                                        local_steps=2)
+
+    def fresh():
+        params = init_params(model, torch.Generator().manual_seed(0), "cuda")
+        return params, init_safl(cfg, params)
+
+    def cursor_state(params, opt, t, key):
+        return {"params": params, "opt": opt,
+                "cursor": {"t": torch.tensor(t),
+                           "key": torch.tensor(key, dtype=torch.uint32)}}
+
+    sched = cosine(rounds)
+    run = functools.partial(
+        run_scan, functools.partial(safl_round, cfg, lambda p, b: loss_fn(model, p, b),
+                                    plan=make_packing_plan(cfg.sketch, fresh()[0])),
+        sampler, chunk_size=2, bits_per_round=per_client_bits(model, cfg.sketch),
+        participation=UniformParticipation(G_CLIENTS, frac=0.4, seed=123),
+        kwargs_fn=lambda t: {"lr_scale": sched(t)})
+    key = prng.key(0)
+    t0 = time.perf_counter()
+    p_ref, s_ref, h_ref = run(*fresh(), rounds=rounds, key=key)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt")
+
+        def on_chunk(t_done, params, opt, hist):
+            if t_done == stop:
+                save_checkpoint(path, cursor_state(params, opt, t_done, key),
+                                step=t_done)
+
+        _, _, h_a = run(*fresh(), rounds=stop, key=key, on_chunk=on_chunk)
+        state, step = restore_checkpoint(path, cursor_state(*fresh(), 0, (0, 0)))
+    k2 = tuple(int(k) for k in state["cursor"]["key"].tolist())
+    check(step == stop and int(state["cursor"]["t"]) == stop and k2 == key,
+          f"restored cursor {step}, {state['cursor']}")
+    p_b, s_b, h_b = run(state["params"], state["opt"], rounds=rounds, key=k2,
+                        start_round=stop)
+    stitched = {k: np.concatenate([h_a[k], h_b[k]]) for k in h_ref}
+    print(f"resume: loss {h_ref['loss']}, resumed {h_b['loss']}; uplink_bits "
+          f"{h_ref['uplink_bits']}; lr_scale {[sched(t) for t in range(rounds)]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for k in h_ref:
+        check(np.array_equal(stitched[k], h_ref[k]),
+              f"resume: stitched {k} history differs from the uninterrupted run's")
+    for k in p_ref:
+        check(torch.equal(p_b[k], p_ref[k]), f"resume: param {k} differs")
+    for name in ("m", "v", "vhat"):
+        for k in s_ref[name]:
+            check(torch.equal(s_b[name][k], s_ref[name][k]),
+                  f"resume: opt state {name}/{k} differs")
+    check(torch.equal(s_b["step"], s_ref["step"]), "resume: opt step differs")
+    print("resume: params, opt state and the stitched history bitwise equal "
+          "to the uninterrupted run's")
 
 
 def print_cs_launches(name: str, n: dict[str, int]) -> None:
@@ -802,6 +1033,12 @@ def main() -> int:
     print_cs_launches("lm25m", n)
     entries[1]["launches"] = n["countsketch"]
     entries[2]["launches"] = n["fwht"]
+    torch.cuda.empty_cache()
+    n = phase_noniid()
+    print_cs_launches("bert_100m sacfl", n)
+    entries[0]["launches"] += n["countsketch"]
+    torch.cuda.empty_cache()
+    phase_resume()
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")

@@ -1,0 +1,82 @@
+"""Clipped SAFL (SACFL) for heavy-tailed client noise, in PyTorch.
+
+Counterpart of ``repro/core/clipped.py``.  Each client clips its local
+model delta to an l2 ball of radius ``tau`` BEFORE sketching.  Clipping
+acts on the true delta, so the sketch's linearity (over the averaged
+clipped deltas) and unbiasedness are untouched and the server's ADA_OPT
+step is unchanged; with tau -> inf the round is SAFL's.
+
+The global norm sums the leaves' float32 squared sums in ``leaf_names``
+order (the reference sums its leaves in jax's flatten order, and each
+reduction in XLA's order, so the two packages agree to float32 rounding).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch import prng
+from repro_torch.core.adaptive import apply_update
+from repro_torch.core.packed import PackingPlan
+from repro_torch.core.safl import (LossFn, SAFLConfig, Tree, client_deltas,
+                                   masked_mean, sketched_cohort_update)
+from repro_torch.core.sketch import leaf_names
+
+
+@dataclasses.dataclass(frozen=True)
+class ClippedSAFLConfig:
+    base: SAFLConfig = SAFLConfig()
+    clip_tau: float = 1.0          # l2 radius for the client delta
+    per_tensor: bool = False       # clip each tensor separately vs globally
+
+
+def _norm(xs) -> torch.Tensor:
+    """sqrt(sum of float32 squares + 1e-12) over the tensors ``xs``."""
+    sq = sum(torch.sum(x.to(torch.float32) ** 2) for x in xs)
+    return torch.sqrt(sq + 1e-12)
+
+
+def _tau(cfg: ClippedSAFLConfig, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(cfg.clip_tau, dtype=torch.float32, device=like.device)
+
+
+def clip_delta(cfg: ClippedSAFLConfig, delta: Tree) -> dict[str, torch.Tensor]:
+    """l2-clip one client's delta (global norm by default)."""
+    if cfg.per_tensor:
+        return {k: x * torch.clamp(_tau(cfg, x) / _norm([x]), max=1.0)
+                for k, x in delta.items()}
+    nrm = _norm([delta[k] for k in leaf_names(delta)])
+    scale = torch.clamp(_tau(cfg, nrm) / nrm, max=1.0)
+    return {k: x * scale for k, x in delta.items()}
+
+
+def clip_trigger(cfg: ClippedSAFLConfig, delta: Tree) -> torch.Tensor:
+    """1.0 if this client's pre-clip delta exceeded the clip radius (under
+    per-tensor clipping: if ANY tensor did), else 0.0 (float32)."""
+    if cfg.per_tensor:
+        trig = torch.stack([_norm([x]) > cfg.clip_tau for x in delta.values()])
+        return torch.any(trig).to(torch.float32)
+    nrm = _norm([delta[k] for k in leaf_names(delta)])
+    return (nrm > cfg.clip_tau).to(torch.float32)
+
+
+def clipped_safl_round(cfg: ClippedSAFLConfig, loss_fn: LossFn, params: Tree,
+                       opt_state: dict, batch, round_key: prng.Key, *,
+                       plan: Optional[PackingPlan] = None,
+                       part_mask=None) -> tuple[dict, dict, dict]:
+    """One SAFL round with per-client delta clipping (heavy-tail defense).
+    ``batch`` leaves are (G, K, mb, ...) as in ``safl_round``; ``plan`` and
+    ``part_mask`` as there.  The client lr and the server lr are the
+    config's (no schedule scales, as in the reference)."""
+    base = cfg.base
+    eta = float(torch.tensor(base.client_lr, dtype=torch.float32))
+    deltas, losses = client_deltas(base, loss_fn, params, batch, eta,
+                                   clip=lambda d: clip_delta(cfg, d))
+    update = sketched_cohort_update(base.sketch, plan, params, deltas,
+                                    round_key, part_mask)
+    del deltas
+    new_params, new_opt = apply_update(base.server, opt_state, params, update)
+    return new_params, new_opt, {"loss": masked_mean(losses, part_mask)}

@@ -339,3 +339,10 @@ def sk_packed_clients(plan: PackingPlan, rp: dict, stacked: Tree) -> torch.Tenso
     if cfg.kind == "gaussian" and not plan.all_raw:
         return _gaussian_sk_rows(plan, rp, flat2)
     return torch.stack([sk_flat(plan, rp, f) for f in flat2])
+
+
+def roundtrip_packed(plan: PackingPlan, key: prng.Key, tree: Tree) -> dict:
+    """desk(sk(tree)) with the round's parameters derived once, on the
+    tree's device."""
+    rp = derive_round_params(plan, key, next(iter(tree.values())).device)
+    return desk_packed(plan, rp, sk_packed(plan, rp, tree))

@@ -255,6 +255,11 @@ def desk_leaf(cfg: SketchConfig, key: prng.Key, s: torch.Tensor, n: int,
 # Tree-level sketching
 # ---------------------------------------------------------------------------
 
+def tree_sketch_sizes(cfg: SketchConfig, tree: Mapping[str, Any]) -> list[int]:
+    """Per-leaf sketch sizes, in ``leaf_names`` order."""
+    return [leaf_sketch_size(numel(tree[k].shape), cfg) for k in leaf_names(tree)]
+
+
 def total_sketch_bits(cfg: SketchConfig, tree: Mapping[str, Any]) -> int:
     """Uplink payload in bits per round: the packed ``(b_total,)`` payload."""
     from repro_torch.core.packed import make_packing_plan
@@ -288,3 +293,8 @@ def desketch_tree(cfg: SketchConfig, key: prng.Key, sketches,
     return {k: desk_leaf(cfg, _keys(key, i), sketches[k], numel(like[k].shape))
             .reshape(like[k].shape).to(like[k].dtype)
             for i, k in enumerate(names)}
+
+
+def roundtrip_tree(cfg: SketchConfig, key: prng.Key, tree: Tree) -> dict[str, torch.Tensor]:
+    """desk(sk(tree)) -- the lossy replicate the server optimizer consumes."""
+    return desketch_tree(cfg, key, sketch_tree(cfg, key, tree), tree)

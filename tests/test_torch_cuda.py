@@ -19,10 +19,12 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.adaptive import AdaConfig
+from repro_torch.core.clipped import ClippedSAFLConfig, clipped_safl_round
 from repro_torch.core.packed import make_packing_plan
 from repro_torch.core.safl import SAFLConfig, init_safl, safl_round
 from repro_torch.core.sketch import SketchConfig
 from repro_torch.data.synthetic import BigramLMData, LMDataConfig
+from repro_torch.fed import ImportanceParticipation, UniformParticipation
 from repro_torch.kernels import countsketch as cs
 from repro_torch.kernels import fwht as fw
 from repro_torch.kernels import gaussian_sketch as gs
@@ -377,3 +379,50 @@ def test_scan_equals_host_loop_bitwise_through_kernels(sketch):
     assert (h1["loss"] == h2["loss"]).all()
     for k in p1:
         assert torch.equal(p1[k], p2[k]), k
+
+
+@pytest.mark.cuda
+def test_sacfl_with_participation_on_card_matches_cpu():
+    """Two SACFL rounds under uniform participation through the kernels on
+    the card against the same rounds on the CPU (plain versions): the
+    cohort masks bit for bit (also the importance policy's over 32
+    rounds), losses and parameters within chip_smoke's card-against-CPU
+    tolerances (float32 matmul orders, amplified by AMSGrad's normalized
+    step in near-zero sketch slots)."""
+    _need_card()
+    model = ModelConfig(name="tiny", arch_type="dense", num_layers=2,
+                        d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                        vocab_size=128)
+    sketch = SketchConfig(kind="countsketch", cs_hash="independent", ratio=0.05,
+                          min_b=16, use_kernels=True)
+    cfg = ClippedSAFLConfig(
+        base=SAFLConfig(sketch=sketch, server=AdaConfig(name="amsgrad", lr=0.01),
+                        client_lr=0.5, local_steps=2), clip_tau=0.5)
+    sampler = BigramLMData(LMDataConfig(vocab_size=128, seq_len=16,
+                                        num_clients=5, alpha=0.05)
+                           ).device_sampler(4, 2)
+    policy = UniformParticipation(5, frac=0.4, seed=123)
+
+    def run(device):
+        params = init_params(model, torch.Generator().manual_seed(0), device)
+        fn = functools.partial(clipped_safl_round, cfg,
+                               lambda p, b: loss_fn(model, p, b),
+                               plan=make_packing_plan(sketch, params))
+        return run_scan(fn, sampler, params, init_safl(cfg.base, params),
+                        rounds=2, key=prng.key(1), participation=policy,
+                        bits_per_round=1000)
+
+    launches = cs.LAUNCHES.n
+    pg, _, hg = run("cuda")
+    assert cs.LAUNCHES.n >= launches + 2
+    pc, _, hc = run("cpu")
+    assert (hg["uplink_bits"] == hc["uplink_bits"]).all()
+    torch.testing.assert_close(torch.from_numpy(hg["loss"]),
+                               torch.from_numpy(hc["loss"]), rtol=1e-4, atol=1e-4)
+    for k in pc:
+        torch.testing.assert_close(pg[k].cpu(), pc[k], rtol=1e-3, atol=2e-3)
+    importance = ImportanceParticipation(5, (0.1, 0.3, 0.2, 0.15, 0.25), frac=0.4)
+    for t in range(32):
+        assert torch.equal(policy.mask(t, "cuda").cpu(), policy.mask(t, "cpu"))
+        assert torch.equal(importance.mask(t, "cuda")["w"].cpu(),
+                           importance.mask(t, "cpu")["w"])
