@@ -17,7 +17,12 @@ Phases (any failed check or exception exits nonzero):
    bit, timed with the L2 cache flushed before each call, and the round's
    sum against its bound; then the Gaussian pair (B3 sk, B4 desk) at the
    test shapes, and at full width: every live leaf of the lm25m plan at
-   ratio 0.02 through ``kernels.ops.gaussian_sk``/``gaussian_desk``;
+   ratio 0.02 through ``kernels.ops.gaussian_sk``/``gaussian_desk``, timed
+   at the attention leaf, the largest leaf and over the plan, each beside
+   its bound (``GAUSS_TERMS``: per element of R, the least operations on
+   each pipe and the least instructions to issue; the earlier one-pipe
+   model, which put every integer operation on the 64-lane ALU, beside
+   it);
 3. two SAFL rounds of bert_100m SMOKE on the card (kernels) against the
    same rounds on the CPU (plain versions), from the same weights, with
    count-sketch, with SRHT and with the Gaussian family; and two SACFL
@@ -94,15 +99,29 @@ from repro_torch.optim.schedules import cosine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-# lanes per SM per clock of each pipe on Hopper (sm_90): integer add, logic,
-# shift and multiply; float32 add, multiply and FMA; the 16-lane pipe of
-# special functions and conversions
-LANES = {"int": 64, "fp32": 128, "sfu": 16}
-# operations per element of the Gaussian R that the function needs: the
-# reference's _gauss_tile (src/repro/kernels/gaussian_sketch.py:41) with its
-# counter stepped by one add, plus the contraction's multiply-add.  "sfu" is
-# log, sqrt and cos and the two uint32 -> float conversions; see PERF.md
-GAUSS_OPS = {"int": 22, "fp32": 12, "sfu": 5}
+# The least work per element of the Gaussian R that the function needs (the
+# reference's _gauss_tile, src/repro/kernels/gaussian_sketch.py:41, plus the
+# contraction's multiply-add), as (operations, lanes per SM per clock of the
+# pipes that can run them on Hopper).  Integer: 18 = two counters (the
+# splitmix32 add folded into a counter stepped by one add, for each of the
+# two streams), two mixes of 6 (two xor-shifts and two multiplies), and two
+# of the last xor-shift (2).  No >> 8: the last xor can also clear the low 8
+# bits, and the result, 256 k for the top 24 bits k, converts to float
+# exactly (tests/test_torch_gaussian.py holds this for every k).  The 6 xors
+# run only on the integer ALU (LOP3, 64 lanes); the 4 multiplies only on the
+# FMA-heavy pipe (IMAD, 64 lanes); a shift or an add on either, so the 18
+# share 128 lanes.  float32: 4 (u1's offset and scale, cos's argument,
+# r * c, the multiply-add) on the two FMA pipes.  The 16-lane pipe: lg2,
+# sqrt and cos; the two uint32 -> float conversions need not use it (I2FP
+# does not: with five 16-lane operations an element the attention leaf
+# could not take under 18.7 ms, and the kernels take ~17).  Issue: every
+# instruction above, 27 with a conversion each, at one warp instruction per
+# scheduler per clock (128 lanes an SM).  See PERF.md.
+GAUSS_TERMS = {"alu": (6, 64), "imad": (4, 64), "int": (18, 128),
+               "fp32": (4, 128), "sfu": (3, 16), "issue": (27, 128)}
+# the earlier model, printed beside it: 22 integer operations on one
+# 64-lane pipe, 12 float32, 5 on the 16-lane pipe (the conversions included)
+GAUSS_TERMS_ONE_PIPE = {"int": (22, 64), "fp32": (12, 128), "sfu": (5, 16)}
 G_CLIENTS = 5               # clients per round (the paper's section 5 setup)
 CLIP_TAU = 1.0              # SACFL's l2 clip radius of a client's delta
 SACFL_TAUS = (CLIP_TAU, 0.5)  # phase 3's radii: the bench's, and one that clips
@@ -167,17 +186,25 @@ def max_sm_clock_hz() -> float:
         text=True).stdout.split()[0])
 
 
-def gauss_bound_ms(n: int, b: int, clock_hz: float,
-                   sms: int) -> tuple[float, str]:
-    """The least time for one Gaussian sk or desk of an (n, b) R on a card
-    of ``sms`` SMs: the larger of the bytes (x or s read, the output
-    written) over the memory rate and each pipe's operations over its peak
-    rate.  Returns (ms, the bound: "bytes", "int", "fp32" or "sfu")."""
-    times = {"bytes": (n + b) * 4 / HBM_BYTES_PER_S}
-    for pipe, ops in GAUSS_OPS.items():
-        times[pipe] = ops * n * b / (LANES[pipe] * sms * clock_hz)
+def gauss_bound_terms(n: int, b: int, clock_hz: float, sms: int,
+                      terms: dict = GAUSS_TERMS) -> dict[str, float]:
+    """The ms of each term of the bound for one Gaussian sk or desk of an
+    (n, b) R on a card of ``sms`` SMs: the bytes (x or s read, the output
+    written) over the memory rate, and each pipe's operations over its
+    lanes at the SM clock."""
+    times = {"bytes": (n + b) * 4 / HBM_BYTES_PER_S * 1e3}
+    for pipe, (ops, lanes) in terms.items():
+        times[pipe] = ops * n * b / (lanes * sms * clock_hz) * 1e3
+    return times
+
+
+def gauss_bound_ms(n: int, b: int, clock_hz: float, sms: int,
+                   terms: dict = GAUSS_TERMS) -> tuple[float, str]:
+    """The least time for one Gaussian sk or desk: the largest term of
+    ``gauss_bound_terms``.  Returns (ms, the term's name)."""
+    times = gauss_bound_terms(n, b, clock_hz, sms, terms)
     by = max(times, key=times.get)
-    return times[by] * 1e3, by
+    return times[by], by
 
 
 # ---------------------------------------------------------------------------
@@ -590,14 +617,22 @@ def phase_gaussian(gen: torch.Generator) -> list[dict]:
         "desk": cuda_ms(lambda: [gs.gaussian_desk_cuda(seeds[o.index], pays[o.index], o.n)
                                  for o in live], 0, 1)}
     plan_bms = sum(gauss_bound_ms(o.n, o.b, clock, sms)[0] for o in live)
-    print(f"max SM clock {clock / 1e6:.0f} MHz; {sms} SMs; ops per element "
-          f"{GAUSS_OPS}")
+    old = {"att": gauss_bound_ms(att.n, att.b, clock, sms, GAUSS_TERMS_ONE_PIPE)[0],
+           "big": gauss_bound_ms(big.n, big.b, clock, sms, GAUSS_TERMS_ONE_PIPE)[0],
+           "plan": sum(gauss_bound_ms(o.n, o.b, clock, sms, GAUSS_TERMS_ONE_PIPE)[0]
+                       for o in live)}
+    print(f"max SM clock {clock / 1e6:.0f} MHz; {sms} SMs; per element of R "
+          f"(operations, lanes an SM): {GAUSS_TERMS}; one-pipe model: {GAUSS_TERMS_ONE_PIPE}")
+    terms = gauss_bound_terms(att.n, att.b, clock, sms)
+    print("gaussian bound terms, attention leaf (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in terms.items()))
     for k in ("sk", "desk"):
         print(f"gaussian_{k} attention leaf (n, b)=({att.n}, {att.b}): ms "
-              f"{ms[k]:.3f}; plain_ms {plain[k]:.3f}; bound_ms {bms:.3f} "
-              f"({by}); largest leaf ({big.n}, {big.b}): ms {big_ms[k]:.3f}, "
-              f"bound_ms {big_bms:.3f} ({big_by}); whole plan: ms "
-              f"{plan_ms[k]:.3f}, bound_ms {plan_bms:.3f}")
+              f"{ms[k]:.3f}; plain_ms {plain[k]:.3f}; bound_ms {bms:.3f} ({by}; "
+              f"one-pipe model {old['att']:.3f}); largest leaf ({big.n}, {big.b}): ms "
+              f"{big_ms[k]:.3f}, bound_ms {big_bms:.3f} ({big_by}; one-pipe model "
+              f"{old['big']:.3f}); whole plan ({len(live)} leaves): ms "
+              f"{plan_ms[k]:.3f}, bound_ms {plan_bms:.3f} (one-pipe model {old['plan']:.3f})")
     bound_by = "bytes" if by == "bytes" else "operations"
     return [dict(name=f"gaussian_{k}", route="cuda",
                  source="src/repro_torch/csrc/gaussian_sketch.cu",

@@ -14,7 +14,10 @@ tile ``t`` is a pure function of ``(seed, t, row, col)``:
   tensors masked to 32 bits, as in ``repro_torch.prng``.
 * ``gaussian_sk_cuda``, ``gaussian_desk_cuda`` -- the hand-written Hopper
   kernels (``csrc/gaussian_sketch.cu``).  sk is two launches: partial sums
-  over row splits, then their sum in a fixed order; desk is one.
+  over row splits, each thread walking the rows for ``SK_COLS`` columns,
+  then their sum in a fixed order; desk is one, each thread walking the
+  columns for its rows.  Both make R with the PTX approximations of lg2,
+  sqrt and cos (the plain versions use the accurate ones), a few ulp apart.
 
 ``LAUNCHES["gaussian_sk"]`` and ``LAUNCHES["gaussian_desk"]`` count the
 kernel launches of each.
@@ -23,15 +26,16 @@ kernel launches of each.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import build
 
-TILE_N = 512          # rows of R^T per tile (the reference's grid step)
-SK_THREADS = 256      # columns per sk block (csrc/gaussian_sketch.cu)
-SK_BLOCKS_PER_SM = 16  # sk blocks to aim for on each SM of the card
+TILE_N = 512       # rows of R^T per tile (the reference's grid step)
+SK_THREADS = 256   # threads of an sk block (csrc/gaussian_sketch.cu) ...
+SK_COLS = 2        # ... and the columns each owns
 
 M32 = 0xFFFFFFFF
 _SEED_MUL, _TILE_MUL = 0x9E3779B1, 0x85EBCA77
@@ -145,15 +149,39 @@ def _launch(kernel: str, fn_name: str, argtypes, *args) -> None:
     LAUNCHES[kernel].n += 1
 
 
-def _sk_splits(n: int, b: int, sms: int) -> tuple[int, int]:
-    """(splits, tiles per split) of the sk grid on a card of ``sms`` SMs:
-    enough row splits that column blocks x splits reaches
-    ``SK_BLOCKS_PER_SM * sms``, each a whole number of tiles."""
+def _sk_splits(n: int, b: int, slots: int) -> int:
+    """Row splits of the sk grid on a card that holds ``slots`` blocks at
+    once.  Split y of ``splits`` takes tiles [n_tiles * y // splits,
+    n_tiles * (y + 1) // splits).  Of the splits that fill one to four
+    waves, the one whose blocks keep the card busiest: blocks over the slots
+    of the waves they take, times a split's mean tiles over its most."""
     n_tiles = -(-n // TILE_N)
-    col_blocks = -(-b // SK_THREADS)
-    want = max(1, min(n_tiles, -(-SK_BLOCKS_PER_SM * sms // col_blocks)))
-    per = -(-n_tiles // want)
-    return -(-n_tiles // per), per
+    col_blocks = -(-b // (SK_THREADS * SK_COLS))
+    best, best_busy = 1, 0.0
+    for waves in range(1, 5):
+        splits = max(1, min(n_tiles, waves * slots // col_blocks))
+        blocks = col_blocks * splits
+        busy = (blocks / (slots * -(-blocks // slots))
+                * n_tiles / (splits * -(-n_tiles // splits)))
+        if busy > best_busy + 1e-9:
+            best, best_busy = splits, busy
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sk_slots(index: int) -> int:
+    """The sk blocks card ``index`` holds at once (occupancy x SMs)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = build.load("gaussian_sketch").gaussian_sk_slots(ctypes.byref(n))
+    if err != 0 or n.value <= 0:
+        raise RuntimeError(f"gaussian_sk_slots failed: CUDA error {err}")
+    return n.value
+
+
+def _aligned(v: torch.Tensor) -> torch.Tensor:
+    """v, or a copy of it on 16 bytes: the kernels read it as float4."""
+    return v if v.data_ptr() % 16 == 0 else v.clone()
 
 
 def gaussian_sk_cuda(seed: int, x: torch.Tensor, b: int) -> torch.Tensor:
@@ -165,14 +193,15 @@ def gaussian_sk_cuda(seed: int, x: torch.Tensor, b: int) -> torch.Tensor:
     out = torch.empty(b, dtype=torch.float32, device=x.device)
     if n == 0:
         return out.zero_()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, per = _sk_splits(n, b, sms)
+    x = _aligned(x)
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    splits = _sk_splits(n, b, _sk_slots(index))
     partials = torch.empty((splits, b), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     vp, ll, i, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint32
-    _launch("gaussian_sk", "gaussian_sk_partials", [u32, vp, ll, i, i, i, vp, vp],
-            int(seed) & M32, x.data_ptr(), n, b, splits, per,
-            partials.data_ptr(), stream)
+    _launch("gaussian_sk", "gaussian_sk_partials", [u32, vp, ll, i, i, vp, vp],
+            int(seed) & M32, x.data_ptr(), n, b, splits, partials.data_ptr(),
+            stream)
     _launch("gaussian_sk", "gaussian_sk_reduce", [vp, i, i, vp, vp],
             partials.data_ptr(), splits, b, out.data_ptr(), stream)
     return out
@@ -187,6 +216,7 @@ def gaussian_desk_cuda(seed: int, s: torch.Tensor, n: int) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.float32, device=s.device)
     if n == 0:
         return out
+    s = _aligned(s)
     stream = torch.cuda.current_stream(s.device).cuda_stream
     vp, ll, i, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint32
     _launch("gaussian_desk", "gaussian_desk", [u32, vp, i, ll, vp, vp],

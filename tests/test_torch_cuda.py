@@ -350,6 +350,72 @@ def test_gaussian_kernels_match_plain_versions():
         assert abs(lhs - rhs) <= 1e-5 * float(sk.norm() * s.norm()), (n, b)
 
 
+def test_gaussian_layout_comes_from_the_source():
+    """The wrapper's tile and sk block layout are the kernels' own, read
+    from their source."""
+    text = (pathlib.Path(gs.build.CSRC) / "gaussian_sketch.cu").read_text()
+    for name, value in (("TILE_N", gs.TILE_N), ("SK_THREADS", gs.SK_THREADS),
+                        ("SK_COLS", gs.SK_COLS)):
+        assert f"#define {name} {value}\n" in text
+
+
+@pytest.mark.parametrize("n,b,slots", [
+    (884_736, 17_695, 264), (884_736, 17_695, 396), (3_538_944, 70_779, 396),
+    (4096, 70_779, 396), (100, 16, 396), (513, 64, 132), (1, 1, 264),
+    (70_000_000, 3, 528), (3_000_000, 16_000_000, 264)])
+def test_gaussian_sk_splits_cover_the_tiles(n, b, slots):
+    """Every split of the sk grid is a non-empty run of whole tiles, the
+    runs cover the tiles once in order and differ by at most one tile, and
+    the grid fills one to four waves of the card's slots, or takes every
+    tile, or is one split whose column blocks alone fill four waves."""
+    splits = gs._sk_splits(n, b, slots)
+    n_tiles = -(-n // gs.TILE_N)
+    runs = [(n_tiles * y // splits, n_tiles * (y + 1) // splits) for y in range(splits)]
+    assert runs[0][0] == 0 and runs[-1][1] == n_tiles
+    assert all(a[1] == c[0] for a, c in zip(runs, runs[1:]))
+    sizes = {t1 - t0 for t0, t1 in runs}
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    col_blocks = -(-b // (gs.SK_THREADS * gs.SK_COLS))
+    assert splits == n_tiles or col_blocks * splits <= 4 * slots or (
+        splits == 1 and col_blocks > 4 * slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(200_000, 3_000), (8 * gs.TILE_N, 70_779)])
+def test_gaussian_two_calls_bitwise_equal(n, b):
+    """B3 and B4 sum in a fixed order, with no float atomics: two calls on
+    the same inputs return the same bits."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n + b)
+    x = torch.randn(n, generator=gen, device="cuda")
+    s = torch.randn(b, generator=gen, device="cuda")
+    assert torch.equal(gs.gaussian_sk_cuda(5, x, b), gs.gaussian_sk_cuda(5, x, b))
+    assert torch.equal(gs.gaussian_desk_cuda(5, s, n), gs.gaussian_desk_cuda(5, s, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 511, 513])
+@pytest.mark.parametrize("b", [1, 3, 255, 257])
+def test_gaussian_edge_shapes_match_plain(n, b):
+    """Ragged tiles (n = 1, 511, 513), ragged column blocks and columns of a
+    thread (b = 1, 3, 255, 257, not multiples of 4) and an empty input,
+    against the plain versions at the tolerance of
+    ``test_gaussian_kernels_match_plain_versions``; x and s start off the
+    16-byte alignment the kernels read them at."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(7 * n + b)
+    x = torch.randn(n + 1, generator=gen, device="cuda")[1:]
+    s = torch.randn(b + 1, generator=gen, device="cuda")[1:]
+    sk, desk = gs.gaussian_sk_cuda(11, x, b), gs.gaussian_desk_cuda(11, s, n)
+    assert sk.shape == (b,) and desk.shape == (n,)
+    pairs = [(sk, gs.gaussian_sk_plain(11, x, b))]
+    if n:     # the plain desk takes n >= 1
+        pairs.append((desk, gs.gaussian_desk_plain(11, s, n)))
+    for got, want in pairs:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sketch", [
     SketchConfig(kind="countsketch", cs_hash="independent", ratio=0.05,

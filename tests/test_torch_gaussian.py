@@ -123,6 +123,132 @@ def test_gaussian_kernels_plain_adjoint():
     assert abs(lhs - rhs) < 1e-4 * max(1.0, abs(lhs))
 
 
+# The Hopper kernels' integer and float algebra (csrc/gaussian_sketch.cu),
+# written again in numpy and held bit for bit against the reference's
+# _splitmix32, _uniform01 and counters: the kernels run only on a card.
+_U32 = np.uint32
+_GOLDEN, _SEED_MUL, _TILE_MUL = 0x9E3779B9, 0x9E3779B1, 0x85EBCA77
+
+
+def _masked_bits(x):
+    """top24()'s integer part, given x = ctr + 0x9E3779B9 (splitmix32's
+    first add carried by the counter): the rest of the mix, its last xor
+    also clearing the low 8 bits."""
+    x = np.asarray(x, np.uint32)
+    x = (x ^ (x >> _U32(16))) * _U32(0x85EBCA6B)
+    x = (x ^ (x >> _U32(13))) * _U32(0xC2B2AE35)
+    return (x ^ (x >> _U32(16))) & _U32(0xFFFFFF00)
+
+
+def _uniforms(masked):
+    """gauss()'s u1 and u2 - 1/2: I2FP of 256 k, then one FFMA each.  The
+    exact sum fits float64, so float64 then one rounding to float32 is the
+    FFMA."""
+    f = masked.astype(np.float32)
+    assert np.array_equal(f.astype(np.float64), masked.astype(np.float64))
+    f = f.astype(np.float64) * 2.0 ** -32
+    half = np.float64(np.float32(2.0 ** -24 - 0.5))
+    return (f + 2.0 ** -24).astype(np.float32), (f + half).astype(np.float32)
+
+
+def test_kernel_uniforms_exact_for_every_k():
+    """For all 2**24 values k of the top 24 bits (the low 8 bits anything),
+    u1 equals the reference's _uniform01 bit for bit, and u2 - 1/2 is
+    exactly it less one half."""
+    for k0 in range(0, 1 << 24, 1 << 22):
+        k = np.arange(k0, k0 + (1 << 22), dtype=np.uint32)
+        bits = (k << _U32(8)) | ((k * _U32(2654435761)) >> _U32(24))
+        u1, v2 = _uniforms(bits & _U32(0xFFFFFF00))
+        want = np.asarray(rgs._uniform01(jnp.asarray(bits)))
+        np.testing.assert_array_equal(u1.view(np.uint32), want.view(np.uint32))
+        np.testing.assert_array_equal(v2.astype(np.float64),
+                                      want.astype(np.float64) - 0.5)
+
+
+def _reference_counters(seed, tiles, rows, cols, b):
+    """_gauss_tile's counters, in its own uint32 arithmetic."""
+    base = (jnp.uint32(seed) * jnp.uint32(_SEED_MUL)
+            + jnp.asarray(tiles, jnp.uint32) * jnp.uint32(_TILE_MUL))
+    return np.asarray(base + jnp.asarray(rows, jnp.uint32) * jnp.uint32(2 * b)
+                      + jnp.asarray(cols, jnp.uint32) * jnp.uint32(2))
+
+
+def _hold_to_reference(x, ctr):
+    """The kernel's x = ctr + golden, its two streams' bits and uniforms,
+    against the reference's at the counters ctr."""
+    np.testing.assert_array_equal(x - _U32(_GOLDEN), ctr)
+    mask = _U32(0xFFFFFF00)
+    for xs, c in ((x, ctr), (x + _U32(1), ctr + _U32(1))):
+        bits = np.asarray(rgs._splitmix32(jnp.asarray(c)))
+        np.testing.assert_array_equal(_masked_bits(xs), bits & mask)
+    u1, _ = _uniforms(_masked_bits(x))
+    _, v2 = _uniforms(_masked_bits(x + _U32(1)))
+    want1 = np.asarray(rgs._uniform01(rgs._splitmix32(jnp.asarray(ctr))))
+    want2 = np.asarray(rgs._uniform01(rgs._splitmix32(jnp.asarray(ctr + _U32(1)))))
+    np.testing.assert_array_equal(u1.view(np.uint32), want1.view(np.uint32))
+    np.testing.assert_array_equal(v2.astype(np.float64), want2.astype(np.float64) - 0.5)
+
+
+# b: a small leaf, the lm25m plan's largest, and one where 2b * row wraps
+# past 2**32 within a tile (2b * 511 > 2**32 from b = 4,202,634)
+@pytest.mark.parametrize("seed,b", [(7, 64), (2**32 - 1, 70_779),
+                                    (123_456_789, (1 << 23) - 1)])
+def test_sk_counter_walk_is_the_reference_counters(seed, b):
+    """sk: a thread's x for its SK_COLS adjacent columns starts at each tile
+    from seed * 0x9E3779B1 + 0x9E3779B9 + 2 c + t * 0x85EBCA77 and steps by
+    2b a row; over two whole tiles (their boundary included), for the first
+    and last columns."""
+    tiles = np.array([0, 1, 7, 8, 4095], dtype=np.uint32)
+    cols = np.array([0, 1, 2, 3, b - 2, b - 1], dtype=np.uint32)
+    for t in tiles:
+        x = (_U32((seed * _SEED_MUL + _GOLDEN + int(t) * _TILE_MUL) & 0xFFFFFFFF)
+             + _U32(2) * cols)
+        walked = []
+        for _ in range(tgs.TILE_N):
+            walked.append(x.copy())
+            x = x + _U32(2 * b)
+        rows = np.arange(tgs.TILE_N, dtype=np.uint32)[:, None]
+        _hold_to_reference(np.stack(walked), _reference_counters(seed, t, rows, cols, b))
+
+
+@pytest.mark.parametrize("seed,b", [(7, 64), (2**32 - 1, 70_779),
+                                    (123_456_789, (1 << 23) - 1)])
+def test_desk_counter_walk_is_the_reference_counters(seed, b):
+    """desk: row i's x starts at seed * 0x9E3779B1 + 0x9E3779B9 +
+    (i / 512) * 0x85EBCA77 + (i % 512) * 2b and steps by 2 a column; for
+    rows on both sides of tile boundaries, over the first 64 columns, and
+    from column b - 64 to the last."""
+    rows = np.array([0, 511, 512, 513, 5 * 512 + 300, 3_538_943], dtype=np.uint64)
+    tile, r = (rows // 512).astype(np.uint32), (rows % 512).astype(np.uint32)
+    x0 = (_U32((seed * _SEED_MUL + _GOLDEN) & 0xFFFFFFFF) + tile * _U32(_TILE_MUL)
+          + r * _U32(2 * b))
+    for j0 in (0, b - 64):
+        x = x0 + _U32(2 * j0)
+        walked = []
+        for _ in range(64):
+            walked.append(x.copy())
+            x = x + _U32(2)
+        cols = np.arange(j0, j0 + 64, dtype=np.uint32)[:, None]
+        _hold_to_reference(np.stack(walked),
+                           _reference_counters(seed, tile, r, cols, b))
+
+
+def test_kernel_form_of_r_is_the_reference_tile():
+    """R = -sqrt(2 ln 2) sqrt(|log2 u1|) cos(2 pi (u2 - 1/2)), the form the
+    kernels compute (the constant on the finished sums), from the kernels'
+    u1 and u2 - 1/2 in float64, against _gauss_tile."""
+    seed, tile, b = 2**32 - 1, 5, 70
+    rows = np.arange(tgs.TILE_N, dtype=np.uint32)[:, None]
+    cols = np.arange(b, dtype=np.uint32)
+    x = _reference_counters(seed, tile, rows, cols, b) + _U32(_GOLDEN)
+    u1, _ = _uniforms(_masked_bits(x))
+    _, v2 = _uniforms(_masked_bits(x + _U32(1)))
+    r = (-np.sqrt(2 * np.log(2)) * np.sqrt(np.abs(np.log2(u1.astype(np.float64))))
+         * np.cos(2 * np.pi * v2.astype(np.float64)))
+    want = np.asarray(rgs._gauss_tile(jnp.uint32(seed), jnp.int32(tile), tgs.TILE_N, b))
+    np.testing.assert_allclose(r, want, **TILE_TOL)
+
+
 def _gcfgs(mode, **extra):
     base = dict(kind="gaussian", ratio=0.1, min_b=8, mode=mode,
                 gaussian_chunk=CHUNK)
