@@ -120,6 +120,22 @@ def unpack_tree(plan: PackingPlan, flat: torch.Tensor,
     return out
 
 
+def pack_rows(plan: PackingPlan, stacked: Tree) -> torch.Tensor:
+    """Flatten G stacked trees (leaves (G, ...)) into the (G, d_total) f32
+    buffer, one row a tree."""
+    g = stacked[plan.leaves[0].name].shape[0]
+    return torch.cat([stacked[s.name].reshape(g, -1).to(torch.float32)
+                      for s in plan.leaves], dim=1)
+
+
+def unpack_rows(plan: PackingPlan, flat2: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Slice the (G, d_total) buffer back into (G, ...) leaves (views into
+    ``flat2``, its dtype)."""
+    g = flat2.shape[0]
+    return {s.name: flat2[:, s.in_off:s.in_off + s.n].reshape((g,) + s.shape)
+            for s in plan.leaves}
+
+
 # ---------------------------------------------------------------------------
 # per-round operator parameters (derived once, shared by sk and desk)
 # ---------------------------------------------------------------------------
@@ -326,9 +342,7 @@ def sk_packed_clients(plan: PackingPlan, rp: dict, stacked: Tree) -> torch.Tenso
     size.
     """
     cfg = plan.cfg
-    g = stacked[plan.leaves[0].name].shape[0]
-    flat2 = torch.cat([stacked[s.name].reshape(g, -1).to(torch.float32)
-                       for s in plan.leaves], dim=1)
+    flat2 = pack_rows(plan, stacked)
     if (cfg.kind == "countsketch" and cfg.cs_hash == "independent"
             and cfg.use_kernels and not plan.all_raw):
         out = kops.countsketch_clients(flat2.mul_(rp["s"]), rp["h"],

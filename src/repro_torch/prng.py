@@ -11,10 +11,11 @@ batches.
 A key is a pair of Python ints ``(k0, k1)``, each an unsigned 32-bit word:
 deriving keys (``key``, ``fold_in``, ``split``) is scalar work done on the
 host, so it never synchronises with the device.  The bulk draws
-(``random_bits``, ``randint``, ``uniform``, ``rademacher``, ``normal``) run
-on the tensor device the caller names.  Every stream is a pure function of its
-key, which is a pure function of ``(seed, round, client, leaf)``: keys are
-the port's explicit generators.
+(``random_bits``, ``randint``, ``uniform``, ``bernoulli``, ``permutation``,
+``choice``, ``rademacher``, ``normal``) run on the tensor device the caller
+names.  Every stream is a pure function of its key, which is a pure
+function of ``(seed, round, client, leaf)``: keys are the port's explicit
+generators.
 
 Words are held in int64 tensors masked to 32 bits, because torch's uint32
 support is partial.  The same ``_threefry2x32`` body serves Python ints
@@ -138,6 +139,38 @@ def uniform_many(keys: Sequence[Key], shape: Shape, device) -> torch.Tensor:
     kw = torch.tensor(keys, dtype=torch.int64, device=device).reshape(-1, 2, 1)
     bits = _bits(kw[:, 0], kw[:, 1], math.prod(shape), device)
     return _to_unit(bits).reshape((len(keys),) + shape)
+
+
+def bernoulli(k: Key, p: float, shape: Shape, device) -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)`` (its default ``mode="low"``):
+    ``uniform(k, shape) < p`` with ``p`` rounded to float32, as jax rounds a
+    Python float.  Shape ``()`` draws one scalar."""
+    return uniform(k, shape, device) < float(np.float32(p))
+
+
+def permutation(k: Key, n: int, device) -> torch.Tensor:
+    """``jax.random.permutation(k, n)`` as int64 values: jax's ``_shuffle``
+    of ``arange(n)``, ``ceil(3 ln n / ln(2**32 - 1))`` rounds of ``k, sub =
+    split(k)`` and a stable sort by ``random_bits(sub, (n,))``.  Stability
+    keeps tied 32-bit keys in their incoming order, as XLA's sort does."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(rounds):
+        k, sub = split(k)
+        x = x[torch.sort(random_bits(sub, (n,), device), stable=True).indices]
+    return x
+
+
+def choice(k: Key, n: int, shape: Shape, device) -> torch.Tensor:
+    """``jax.random.choice(k, n, shape, replace=False)`` from ``arange(n)``
+    with uniform probabilities, as int64 values: the first ``prod(shape)``
+    entries of ``permutation(k, n)``."""
+    shape = _shape(shape)
+    m = math.prod(shape)
+    if m > n:
+        raise ValueError(f"cannot take {m} of {n} without replacement")
+    return permutation(k, n, device)[:m].reshape(shape)
 
 
 def rademacher(k: Key, shape: Shape, device) -> torch.Tensor:

@@ -1,0 +1,87 @@
+"""Five free rounds of each of the paper's baselines on the bench LM
+(tests/test_torch_safl.py's model), port against reference, from the same
+weights, through both packages' ``run_scan``; and the port's ``run_scan``
+against its ``run_host_loop``, bit for bit.
+
+The losses are held at rtol 1e-5 (1e-7 to 2e-7 measured).  onebit_adam's
+rounds after its warmup are the exception: 1-bit Adam divides the
+sign-compressed momentum by the frozen variance of two warm rounds, ~1e-12
+for many coordinates, so the sign of a near-zero error-fed coordinate
+(float noise) moves the trajectory.  The reference itself, with its weights
+nudged by one ulp, moves its losses by 5.6e-4 and 3.6e-3 at rounds 3 and 4
+(measured; the test asserts that its own gap exceeds 1e-4), and the port's
+gap is 4.3e-4 and 3.3e-3, so those two rounds are held at rtol 1e-2.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import baselines as rb
+from repro.launch.driver import run_scan as r_run_scan
+from repro.models import ModelConfig as RModel
+from repro.models import loss_fn as r_loss
+from repro_torch import prng
+from repro_torch.core import baselines as tb
+from repro_torch.launch.driver import run_host_loop, run_scan
+from repro_torch.models.config import ModelConfig as TModel
+from repro_torch.models.model import loss_fn as t_loss
+from test_torch_baselines import _both
+from test_torch_safl import DATA, QUICK_KW, _samplers, _weights
+
+torch.set_num_threads(2)
+
+FREE_ALGOS = {
+    "fedavg": dict(server=dict(name="sgd", lr=1.0)),
+    "topk_ef": dict(server=dict(name="sgd", lr=1.0)),
+    "fetchsgd": dict(server=dict(name="sgd", lr=1.0)),
+    "onebit_adam": dict(server=dict(name="adam", lr=0.01), onebit_warmup=2),
+    "marina": dict(server=dict(name="sgd", lr=0.5)),
+    "cocktail": dict(server=dict(name="sgd", lr=1.0)),
+}
+FREE_LOSS_TOL = dict(rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("name", list(FREE_ALGOS))
+def test_five_free_rounds_match_reference(name):
+    """The bench's baseline settings (benchmarks/run.py: client lr 0.5,
+    K = 2, ratio 0.05, min_b 8; the independent hash) on the bench LM from
+    the same weights; and the port's ``run_scan`` is its ``run_host_loop``
+    bit for bit."""
+    sketch = dict(kind="countsketch", ratio=0.05, min_b=8, cs_hash="independent")
+    rcfg, tcfg = _both(name=name, client_lr=0.5, local_steps=2,
+                       topk_ratio=0.05, sketch=sketch, **FREE_ALGOS[name])
+    rcfg = dataclasses.replace(rcfg, remat_local=False)    # the bench's setting
+    rmodel, tmodel = RModel(**QUICK_KW), TModel(**QUICK_KW)
+    rsmp, tsmp = _samplers({**DATA, "vocab_size": 128, "seq_len": 16}, 2)
+    rparams, tparams = _weights(tmodel, 0)
+    if name == "marina":     # both branches in the five rounds of key(3)
+        full = [bool(prng.bernoulli(prng.fold_in(prng.key(3), t), tcfg.marina_p,
+                                    (), "cpu")) for t in range(5)]
+        assert any(full) and not all(full)
+    rfn = functools.partial(rb.baseline_round, rcfg, lambda p, b: r_loss(rmodel, p, b))
+    _, _, rh = r_run_scan(rfn, rsmp, rparams, rb.init_baseline_state(rcfg, rparams, 5),
+                          rounds=5, key=jax.random.key(3), donate=False)
+    tfn = functools.partial(tb.baseline_round, tcfg, lambda p, b: t_loss(tmodel, p, b))
+    fresh = lambda: (tparams, tb.init_baseline_state(tcfg, tparams, 5))
+    p1, s1, th = run_scan(tfn, tsmp, *fresh(), rounds=5, key=prng.key(3), chunk_size=2)
+    p2, s2, th2 = run_host_loop(tfn, tsmp, *fresh(), rounds=5, key=prng.key(3))
+    np.testing.assert_array_equal(th["loss"], th2["loss"])
+    for a, b in ((p1, p2), (s1, s2)):
+        assert all(torch.equal(x, y) for x, y in zip(jax.tree.leaves(a),
+                                                     jax.tree.leaves(b)))
+    assert np.isfinite(th["loss"]).all() and th["loss"].shape == (5,)
+    if name != "onebit_adam":
+        np.testing.assert_allclose(th["loss"], rh["loss"], **FREE_LOSS_TOL)
+        return
+    nudged = jax.tree.map(lambda x: jnp.nextafter(x, jnp.inf), rparams)
+    _, _, rh1 = r_run_scan(rfn, rsmp, nudged, rb.init_baseline_state(rcfg, nudged, 5),
+                           rounds=5, key=jax.random.key(3), donate=False)
+    assert abs(rh1["loss"][4] - rh["loss"][4]) > 1e-4 * rh["loss"][4]
+    np.testing.assert_allclose(th["loss"][:3], rh["loss"][:3], **FREE_LOSS_TOL)
+    np.testing.assert_allclose(th["loss"][3:], rh["loss"][3:], rtol=1e-2, atol=0)

@@ -19,6 +19,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.adaptive import AdaConfig
+from repro_torch.core.baselines import (BaselineConfig, baseline_round,
+                                        init_baseline_state)
 from repro_torch.core.clipped import ClippedSAFLConfig, clipped_safl_round
 from repro_torch.core.packed import make_packing_plan
 from repro_torch.core.safl import SAFLConfig, init_safl, safl_round
@@ -492,3 +494,65 @@ def test_sacfl_with_participation_on_card_matches_cpu():
         assert torch.equal(policy.mask(t, "cuda").cpu(), policy.mask(t, "cpu"))
         assert torch.equal(importance.mask(t, "cuda")["w"].cpu(),
                            importance.mask(t, "cpu")["w"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(132_008_448, 2_640_275), (3 * cs.COARSE_MIN_N, 60_000)])
+def test_countsketch_resketch_shape_bitwise(n, b):
+    """B1 at FetchSGD's re-sketch of its top-k update: G = 1 over all of
+    d_total (bert_100m's at ratio 0.02, and a smaller one), on the large-n
+    route, bit for bit the sum in ascending index order.  The input is the
+    update's shape of data: 2% of the coordinates nonzero."""
+    _need_card()
+    assert cs.route(n, b)[1]
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    x = torch.randn((1, n), generator=gen, device="cuda") * 1e-3
+    x = torch.where(torch.rand((1, n), generator=gen, device="cuda") < 0.02, x, 0.0)
+    h = torch.randint(0, b, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    got = cs.countsketch_clients_cuda(x, h, b)
+    assert torch.equal(got, cs.countsketch_clients_ordered(x, h, b))
+    assert torch.equal(got, cs.countsketch_clients_cuda(x, h, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fetchsgd", "topk_ef"])
+def test_baseline_round_on_card_matches_cpu(name):
+    """One round of FetchSGD (its uplink and its re-sketch through B1) and
+    of topk_ef on the card against the CPU port, from the same weights:
+    losses within 1e-4, parameters within chip_smoke's card-against-CPU
+    tolerance, where a coordinate at a top-k threshold kept on one device
+    and not the other moves alone (at most one in a thousand of the k
+    kept may)."""
+    _need_card()
+    model = ModelConfig(name="tiny", arch_type="dense", num_layers=2,
+                        d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                        vocab_size=128)
+    sketch = SketchConfig(kind="countsketch", cs_hash="independent", ratio=0.05,
+                          min_b=16, use_kernels=True)
+    cfg = BaselineConfig(name=name, client_lr=0.5, local_steps=2,
+                         server=AdaConfig(name="sgd", lr=1.0), topk_ratio=0.05,
+                         sketch=sketch)
+    sampler = BigramLMData(LMDataConfig(vocab_size=128, seq_len=16,
+                                        num_clients=5, alpha=0.05)
+                           ).device_sampler(4, 2)
+
+    def run(device):
+        params = init_params(model, torch.Generator().manual_seed(0), device)
+        plan = make_packing_plan(sketch, params)
+        fn = functools.partial(baseline_round, cfg, lambda p, b: loss_fn(model, p, b),
+                               plan=plan)
+        return run_scan(fn, sampler, params,
+                        init_baseline_state(cfg, params, 5, plan=plan),
+                        rounds=1, key=prng.key(2))
+
+    launches = cs.LAUNCHES.n
+    pg, sg, hg = run("cuda")
+    assert cs.LAUNCHES.n == launches + (2 if name == "fetchsgd" else 0)
+    pc, sc, hc = run("cpu")
+    torch.testing.assert_close(torch.from_numpy(hg["loss"]),
+                               torch.from_numpy(hc["loss"]), rtol=1e-4, atol=1e-4)
+    d = sum(p.numel() for p in pc.values())
+    outside = sum(int((~torch.isclose(pg[k].cpu(), pc[k], rtol=1e-3, atol=2e-3)).sum())
+                  for k in pc)
+    assert outside <= int(d * cfg.topk_ratio) // 1000, outside
+    assert int(sg["round"]) == int(sc["round"]) == 1

@@ -73,3 +73,43 @@ def test_uniform_many_matches_per_key():
 def test_key_rejects_out_of_range_seed():
     with pytest.raises(ValueError):
         prng.key(-1)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.25, 1 / 3, 0.999])
+@pytest.mark.parametrize("shape", [(), (7,), (3, 50), (100_000,)])
+def test_bernoulli_bitwise(p, shape):
+    """``uniform < float32(p)``; shape () is MARINA's one draw a round."""
+    for seed in (1, 12):
+        jk = jax.random.fold_in(jax.random.key(seed), 2)
+        pk = prng.fold_in(prng.key(seed), 2)
+        want = np.asarray(jax.random.bernoulli(jk, p, shape))
+        got = prng.bernoulli(pk, p, shape, "cpu").numpy()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 1000, 90_432, 1 << 20])
+def test_permutation_and_choice_without_replacement_bitwise(n):
+    """jax's shuffle: rounds of a sort by fresh 32-bit keys (two rounds at
+    n = 2**20, where ~128 keys of a round tie and the sort's stability
+    decides their order; the test asserts ties occur)."""
+    jk = jax.random.fold_in(jax.random.key(3), n)
+    pk = prng.fold_in(prng.key(3), n)
+    want = np.asarray(jax.random.permutation(jk, n))
+    got = prng.permutation(pk, n, "cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    assert sorted(got.tolist()) == list(range(n))
+    if n == 1 << 20:
+        keys = prng.random_bits(prng.split(pk)[1], (n,), "cpu")
+        assert n - torch.unique(keys).numel() > 50          # tied keys
+    for m in ([n // 20] if n == 1 << 20 else sorted({1, max(1, n // 20), n})):
+        want = np.asarray(jax.random.choice(jk, n, (m,), replace=False))
+        got = prng.choice(pk, n, (m,), "cpu").numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_choice_shape_and_limit():
+    pk = prng.key(5)
+    assert prng.choice(pk, 4, (2, 2), "cpu").shape == (2, 2)
+    with pytest.raises(ValueError):
+        prng.choice(pk, 3, (4,), "cpu")

@@ -7,7 +7,8 @@
   a file written by either package restores in the other, arrays
   byte-equal.
 * Resume, the three cases of tests/test_resume.py on the port's own
-  ``run_scan``, bit for bit: every per-round stream (the sampler's tokens,
+  ``run_scan``, and two baselines' state (topk_ef's per-client error
+  memories, FetchSGD's sketch-space momentum and error), bit for bit: every per-round stream (the sampler's tokens,
   the cohort mask, the round key, ``kwargs_fn``) is a pure function of the
   absolute round index, so restoring ``(params, opt, cursor)`` and
   re-entering the driver at ``start_round`` replays the uninterrupted run.
@@ -27,8 +28,12 @@ from repro.checkpoint import save_checkpoint as r_save
 from repro.optim import schedules as rsched
 from repro_torch import prng
 from repro_torch.checkpoint.io import restore_checkpoint, save_checkpoint
+from repro_torch.core.adaptive import AdaConfig
+from repro_torch.core.baselines import (BaselineConfig, baseline_round,
+                                        init_baseline_state)
 from repro_torch.core.packed import make_packing_plan
 from repro_torch.core.safl import init_safl, safl_round
+from repro_torch.core.sketch import SketchConfig
 from repro_torch.fed import UniformParticipation
 from repro_torch.launch.driver import run_host_loop, run_scan
 from repro_torch.models.config import ModelConfig
@@ -269,3 +274,39 @@ def test_resume_with_participation_and_lr_schedule(tmp_path):
     p_c, _, _ = run_scan(round_fn, smp, *fresh(), rounds=6, key=key,
                          participation=pol)
     assert any(not torch.equal(p_c[k], p_ref[k]) for k in p_ref)
+
+
+@pytest.mark.parametrize("name", ["topk_ef", "fetchsgd"])
+def test_baseline_resume_is_bit_identical(tmp_path, name):
+    """A baseline's state, its int32 ``round`` included, checkpointed after
+    round 2 of 4 and restored: the resumed rounds equal the uninterrupted
+    run's, parameters, state and losses."""
+    sketch = SketchConfig(kind="countsketch", ratio=0.05, min_b=8,
+                          cs_hash="independent", use_kernels=True)
+    cfg = BaselineConfig(name=name, client_lr=0.5, local_steps=2,
+                         server=AdaConfig(name="sgd", lr=1.0), topk_ratio=0.05,
+                         sketch=sketch)
+    _, smp = _samplers({**DATA, "vocab_size": 128, "seq_len": 16}, 2)
+    params = lambda: init_params(MODEL, torch.Generator().manual_seed(0), "cpu")
+    plan = make_packing_plan(sketch, params())
+    round_fn = functools.partial(baseline_round, cfg, lambda p, b: loss_fn(MODEL, p, b),
+                                 plan=plan)
+    fresh = lambda: (params(), init_baseline_state(cfg, params(), 5, plan=plan))
+    key = prng.key(11)
+    ckpt = str(tmp_path / "ck4")
+    p_ref, s_ref, h_ref = run_scan(round_fn, smp, *fresh(), rounds=4, key=key)
+
+    def on_chunk(t_done, p, s, hist):
+        if t_done == 2:
+            save_checkpoint(ckpt, _cursor_state(p, s, t_done, key), step=t_done)
+
+    _, _, h_a = run_scan(round_fn, smp, *fresh(), rounds=2, key=key,
+                         chunk_size=1, on_chunk=on_chunk)
+    state, step, k2 = _restore(ckpt, fresh)
+    assert step == 2 and int(state["opt"]["round"]) == 2 and k2 == key
+    p_b, s_b, h_b = run_scan(round_fn, smp, state["params"], state["opt"],
+                             rounds=4, key=k2, start_round=2)
+    np.testing.assert_array_equal(np.concatenate([h_a["loss"], h_b["loss"]]),
+                                  h_ref["loss"])
+    _assert_trees_equal(p_b, p_ref)
+    _assert_trees_equal(s_b, s_ref)
