@@ -46,18 +46,34 @@ Phases (any failed check or exception exits nonzero):
    full width and depth (the uplink and the re-sketch of the top-k update
    through the count-sketch kernel), then three topk_ef rounds at the
    same width (no kernel), each with the host and device time of its
-   top-k.
+   top-k;
+9. the federated hooks and the streamed fold: (a) two rounds each of the
+   streamed fold (microbatch 2 of 5), the fold under scripted faults (a
+   NaN and a Byzantine client) with the norm sentinel's two passes (also
+   against a second card run, bit for bit), the int8 and 1-bit codecs
+   with error feedback and the async buffer (stagger, max_delay 2) of
+   bert_100m SMOKE on the card against the CPU, the counters exactly;
+   (b) three streamed SAFL rounds of bert_100m at full width under those
+   faults, the sentinel and the int8 codec with EF, through the
+   count-sketch kernel once per chunk per pass (at G = 2, and G = 1 for
+   the tail), with the rejections, the measured bits and a breakdown by
+   step; (c) three async rounds at the same width, ``arrival_weight``
+   against its closed form, the older generations' operators timed
+   apart; (d) the reference's stream workload (a 330-parameter linear
+   classifier, microbatch 1,024) at G = 2,048 and 8,192, the round's
+   peak memory flat in G.
 
 Phases 4, 5, 6 and 8b end with a breakdown of one round's time by step,
 and check each round's uplink bits (per-client payload times the
 cohort).
 
-The launch counts of the kernels are set to 0 just before phases 4, 5, 6
-and 8b (each run) and the Gaussian full-width run, and read just after
+The launch counts of the kernels are set to 0 just before phases 4, 5, 6,
+8b and 9b (each run) and the Gaussian full-width run, and read just after
 each; the ``kernels`` line has one entry per kernel and path (the
 count-sketch's main-path entry, timed at the uplink's shape, counts
 phases 4 and 6 and FetchSGD's uplink in 8b; its FetchSGD re-sketch entry,
-timed at G = 1, counts the re-sketch's calls in 8b).
+timed at G = 1, counts the re-sketch's calls in 8b; its streamed-chunk
+entry, timed at G = 2, counts 9b's calls).
 The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": ...}``.  Needs one CUDA card; exits nonzero
@@ -101,14 +117,24 @@ from repro_torch.core.packed import (derive_round_params,  # noqa: E402
 from repro_torch.core.safl import (SAFLConfig, init_safl,  # noqa: E402
                                    safl_round, uplink_bits_per_round)
 from repro_torch.core.sketch import SketchConfig  # noqa: E402
-from repro_torch.data.synthetic import BigramLMData, LMDataConfig  # noqa: E402
-from repro_torch.fed import UniformParticipation  # noqa: E402
+from repro_torch.data.synthetic import (BigramLMData,  # noqa: E402
+                                        ClsDataConfig, GaussianClsData,
+                                        LMDataConfig)
+from repro_torch.fed import (AsyncConfig, CodecConfig,  # noqa: E402
+                             FaultTable, SentinelConfig, UniformParticipation,
+                             init_async_state, make_async_round)
+from repro_torch.fed import async_buffer as async_module  # noqa: E402
+from repro_torch.fed import codec as codec_module  # noqa: E402
+from repro_torch.fed import faults as faults_module  # noqa: E402
+from repro_torch.fed import robust as robust_module  # noqa: E402
+from repro_torch.fed.codec import init_codec_state  # noqa: E402
+from repro_torch.fed.faults import BYZANTINE, NAN, OK  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import countsketch as cs  # noqa: E402
 from repro_torch.kernels import fwht as fw  # noqa: E402
 from repro_torch.kernels import gaussian_sketch as gs  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
-from repro_torch.launch.driver import run_scan  # noqa: E402
+from repro_torch.launch.driver import COUNTER_KEYS, run_scan  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.model import (init_params, loss_fn,  # noqa: E402
                                      param_shapes)
@@ -194,6 +220,10 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
 
 
 def max_sm_clock_hz() -> float:
@@ -441,7 +471,27 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
                         replaces="src/repro/kernels/countsketch.py:45",
                         launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=lib_ms))
-    del h, rp, zeros, x1
+    # B1 at the streamed fold's chunk (phase 9b): G = 2 of the same uplink
+    x2 = x[:STREAM_MB].contiguous()
+    err = check_countsketch(x2, h, b)
+    check_repeat(x2, h, b, "streamed chunk")
+    ms = cuda_ms(lambda: cs.countsketch_clients_cuda(x2, h, b))
+    plain_ms = cuda_ms(lambda: cs.countsketch_clients_plain(x2, h, b))
+    zeros = torch.zeros((STREAM_MB, b), device=dev)
+    lib_ms = cuda_ms(lambda: zeros.index_add_(1, h, x2))
+    bms, by = bound_ms(x2.numel() * 4 + h.numel() * h.element_size()
+                       + STREAM_MB * b * 4, x2.numel())
+    print(f"countsketch streamed chunk G={STREAM_MB} n={plan.d_total} b={b}: "
+          f"stages (ms) {cs_stages(x2, h, b)}")
+    print(f"countsketch streamed chunk G={STREAM_MB} n={plan.d_total} b={b}: "
+          f"ms {ms:.3f}; plain_ms {plain_ms:.3f}; library_ms (index_add_) "
+          f"{lib_ms:.3f}; bound_ms {bms:.3f} ({by})")
+    entries.append(dict(name="countsketch_chunk", route="cuda",
+                        source="src/repro_torch/csrc/countsketch.cu",
+                        replaces="src/repro/kernels/countsketch.py:45",
+                        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=lib_ms))
+    del h, rp, zeros, x1, x2
 
     # the same uplink at the smaller ratios users also run (more indices
     # per slot: ~100 and ~200); checked and timed, not on the main path
@@ -721,12 +771,17 @@ def per_client_bits(model: ModelConfig, sketch: SketchConfig,
 
 def run_rounds(model: ModelConfig, sketch: SketchConfig, data: LMDataConfig,
                device: str, rounds: int, per_round=None, server="amsgrad",
-               clip_tau=None, policy=None, baseline=None, seed: int = 0):
+               clip_tau=None, policy=None, baseline=None, seed: int = 0,
+               microbatch=None, faults=None, sentinel=None, codec=None,
+               acfg=None):
     """``rounds`` rounds through ``run_scan`` under ``prng.key(seed)``, one
-    round a chunk: SAFL, SACFL with ``clip_tau``, or the ``baseline``
-    (whose own config then holds the sketch and server); every client in
-    every round, or the cohorts of ``policy``.  ``uplink_bits`` bills the
-    clients that transmit."""
+    round a chunk: SAFL, SACFL with ``clip_tau``, the async buffer of
+    ``acfg`` or the ``baseline`` (whose own config then holds the sketch
+    and server); every client in every round, or the cohorts of
+    ``policy``; with the streamed fold's ``microbatch``, the ``faults``
+    policy, the ``sentinel`` and the ``codec`` (with error feedback, its
+    memory in the state).  ``uplink_bits`` bills the clients that
+    transmit."""
     cfg = safl_cfg(sketch, server)
     params = init_params(model, torch.Generator().manual_seed(0), device=device)
     sampler = BigramLMData(data).device_sampler(batch_per_client=8,
@@ -736,21 +791,34 @@ def run_rounds(model: ModelConfig, sketch: SketchConfig, data: LMDataConfig,
         plan = make_packing_plan(baseline.sketch, params)
         state = init_baseline_state(baseline, params, data.num_clients, plan=plan)
         round_fn = functools.partial(baseline_round, baseline, loss, plan=plan)
+    elif acfg is not None:
+        plan = make_packing_plan(cfg.sketch, params)
+        state = init_async_state(cfg, acfg, params, plan, data.num_clients,
+                                 codec=codec)
+        round_fn = make_async_round(cfg, loss, acfg, plan, microbatch=microbatch,
+                                    codec=codec)
+        microbatch = codec = None           # bound into the async round
     else:
         plan = make_packing_plan(cfg.sketch, params)
         state = init_safl(cfg, params)
+        ef = init_codec_state(codec, data.num_clients, plan.b_total, device)
+        if ef is not None:
+            state = {"opt": state, "ef": ef}
         if clip_tau is None:
-            round_fn = functools.partial(safl_round, cfg, loss, plan=plan)
+            round_fn = functools.partial(safl_round, cfg, loss, plan=plan,
+                                         sentinel=sentinel)
         else:
             round_fn = functools.partial(
                 clipped_safl_round, ClippedSAFLConfig(base=cfg, clip_tau=clip_tau),
-                loss, plan=plan)
+                loss, plan=plan, sentinel=sentinel)
     # under a policy the driver multiplies the per-client bits by the cohort
     bits = per_client_bits(model, sketch, baseline) * (
         1 if policy else data.num_clients)
     return run_scan(round_fn, sampler, params, state, rounds=rounds,
                     key=prng.key(seed), chunk_size=1, bits_per_round=bits,
-                    on_chunk=per_round, participation=policy)
+                    on_chunk=per_round, participation=policy,
+                    buffer=acfg is not None, faults=faults,
+                    microbatch=microbatch, codec=codec)
 
 
 class ClipNorms:
@@ -885,12 +953,13 @@ def full_data() -> LMDataConfig:
 
 def phase_full(name: str, model: ModelConfig, sketch: SketchConfig,
                counters: dict[str, build.LaunchCount],
-               **round_kw) -> dict[str, int]:
+               **round_kw) -> tuple[dict[str, int], float]:
     """Three rounds through ``run_scan`` (``round_kw``: SACFL's clip radius,
     a participation policy or a baseline, as ``run_rounds`` takes them);
     every count in ``counters`` is set to 0 just before and must grow in
     every round, and each round's uplink bits must be the per-client
-    payload times the cohort.  Then one round's time by step.  Returns the counts after the run."""
+    payload times the cohort.  Then one round's time by step.  Returns the
+    counts after the run and its peak device memory in GiB."""
     data = full_data()
     policy = round_kw.get("policy")
     cohort = policy.cohort_size if policy else G_CLIENTS
@@ -930,27 +999,27 @@ def phase_full(name: str, model: ModelConfig, sketch: SketchConfig,
                   f"grow in round {t - 1}")
         prev_t, prev_n = tw, n
     stats = torch.cuda.memory_stats()
+    peak = peak_gib()
     print(f"{name}: first round (with set-up) "
           f"{(marks[0][1] - t0) * 1e3:.1f} ms; steady round ms "
           f"{', '.join(f'{x:.1f}' for x in steady)}; uplink_bits a round "
           f"{want_bits:.0f} (cohort {cohort}); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; allocator "
+          f"{peak:.2f} GiB; allocator "
           f"cudaMalloc calls {stats.get('num_device_alloc')}, retries after "
           f"freeing its cache {stats.get('num_alloc_retries')} (since the start)")
     for k, v in params.items():
         check(bool(torch.isfinite(v).all()), f"{name}: param {k} not finite")
     del params
     round_breakdown(name, model, sketch, data, **round_kw)
-    return launches
+    return launches, peak
 
 
 # the calls a round makes, timed one by one in ``round_breakdown``: those of
-# ``safl_round``, and for SACFL's round also the clip and its server step
+# ``safl_round``, and for SACFL's round also the clip
 ROUND_STEPS = tuple((safl_module, s) for s in (
     "client_delta", "derive_round_params", "sk_packed_clients", "desk_packed",
     "apply_update"))
-CLIPPED_STEPS = ROUND_STEPS[:-1] + ((clipped_module, "clip_delta"),
-                                    (clipped_module, "apply_update"))
+CLIPPED_STEPS = ROUND_STEPS + ((clipped_module, "clip_delta"),)
 # FetchSGD's: the clients, the operator, the uplink sketch (B1), the cohort
 # mean into the sketch momentum and error, the desketch, the per-op top-k,
 # the re-sketch of the update (B1 at G = 1) and the server step
@@ -964,17 +1033,20 @@ TOPK_EF_STEPS = ROUND_STEPS[:1] + tuple((baselines_module, s) for s in (
 
 
 def round_breakdown(name: str, model: ModelConfig, sketch: SketchConfig,
-                    data: LMDataConfig, **round_kw) -> None:
+                    data: LMDataConfig, steps=None, labels=None,
+                    **round_kw) -> None:
     """Where one round's time goes: two more rounds through ``run_scan``,
-    with each call of the real round to a step in ``ROUND_STEPS`` (SACFL:
-    ``CLIPPED_STEPS``; FetchSGD and topk_ef: ``FETCHSGD_STEPS`` and
-    ``TOPK_EF_STEPS``) timed on the host clock, the device synchronised
-    around it.  The second round is printed, with the caching
-    allocator's calls to ``cudaMalloc`` in each step; ``rest`` is what the
-    steps leave of it (sampling, stacking the deltas, the cohort mean, the
-    driver)."""
+    with each call of the real round to a step in ``steps`` (by default
+    ``ROUND_STEPS``; SACFL: ``CLIPPED_STEPS``; FetchSGD and topk_ef:
+    ``FETCHSGD_STEPS`` and ``TOPK_EF_STEPS``) timed on the host clock, the
+    device synchronised around it; ``labels[step](i)`` names the step's
+    i-th call of a round where it differs.  The second round is printed,
+    with the caching allocator's calls to ``cudaMalloc`` in each step;
+    ``rest`` is what the steps leave of it (sampling, stacking the deltas,
+    the cohort mean, the driver)."""
     times: dict[str, float] = {}
     mallocs: dict[str, int] = {}
+    calls: dict[str, int] = {}
     rounds: list[tuple[float, dict, dict]] = []
 
     def device_allocs() -> int:
@@ -982,12 +1054,16 @@ def round_breakdown(name: str, model: ModelConfig, sketch: SketchConfig,
 
     def timed(step, fn):
         def call(*args, **kwargs):
+            label = step
+            if labels and step in labels:
+                label = labels[step](calls.get(step, 0))
+            calls[step] = calls.get(step, 0) + 1
             torch.cuda.synchronize()
             n0, t0 = device_allocs(), time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            times[step] = times.get(step, 0.0) + (time.perf_counter() - t0) * 1e3
-            mallocs[step] = mallocs.get(step, 0) + device_allocs() - n0
+            times[label] = times.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
+            mallocs[label] = mallocs.get(label, 0) + device_allocs() - n0
             return out
         return call
 
@@ -996,8 +1072,11 @@ def round_breakdown(name: str, model: ModelConfig, sketch: SketchConfig,
         rounds.append((time.perf_counter(), dict(times), dict(mallocs)))
         times.clear()
         mallocs.clear()
+        calls.clear()
 
-    if round_kw.get("baseline") is not None:
+    if steps is not None:
+        pass
+    elif round_kw.get("baseline") is not None:
         steps = {"fetchsgd": FETCHSGD_STEPS,
                  "topk_ef": TOPK_EF_STEPS}[round_kw["baseline"].name]
     elif round_kw.get("clip_tau") is not None:
@@ -1028,10 +1107,10 @@ def phase_noniid() -> dict[str, int]:
     policy = UniformParticipation(G_CLIENTS, frac=0.4, seed=123)
     check(policy.cohort_size == 2, f"cohort {policy.cohort_size}, not 2")
     with ClipNorms() as norms:
-        n = phase_full("bert_100m sacfl", bert_100m.CONFIG, MAIN_SKETCH,
-                       {"countsketch": cs.LAUNCHES,
-                        "countsketch_device": cs.DEVICE_LAUNCHES},
-                       clip_tau=CLIP_TAU, policy=policy)
+        n, _ = phase_full("bert_100m sacfl", bert_100m.CONFIG, MAIN_SKETCH,
+                          {"countsketch": cs.LAUNCHES,
+                           "countsketch_device": cs.DEVICE_LAUNCHES},
+                          clip_tau=CLIP_TAU, policy=policy)
     print(f"bert_100m sacfl round 0: cohort {policy.mask(0, 'cpu').tolist()}")
     norms.report("bert_100m sacfl", CLIP_TAU)
     return n
@@ -1216,11 +1295,11 @@ def phase_baselines_full() -> dict[str, int]:
 
     cs.countsketch_clients_cuda = counted
     try:
-        n = phase_full("bert_100m fetchsgd", bert_100m.CONFIG, MAIN_SKETCH,
-                       {"countsketch": cs.LAUNCHES,
-                        "countsketch_device": cs.DEVICE_LAUNCHES,
-                        "countsketch_uplink": by_rows[G_CLIENTS],
-                        "countsketch_resketch": by_rows[1]}, baseline=cfg)
+        n, _ = phase_full("bert_100m fetchsgd", bert_100m.CONFIG, MAIN_SKETCH,
+                          {"countsketch": cs.LAUNCHES,
+                           "countsketch_device": cs.DEVICE_LAUNCHES,
+                           "countsketch_uplink": by_rows[G_CLIENTS],
+                           "countsketch_resketch": by_rows[1]}, baseline=cfg)
     finally:
         cs.countsketch_clients_cuda = route
     for what in ("uplink", "resketch"):
@@ -1242,6 +1321,283 @@ def phase_baselines_full() -> dict[str, int]:
     profile_device(f"topk_ef top-k of ({G_CLIENTS}, {plan.d_total})",
                    lambda: baselines_module.topk_mask(a2, k))
     return n
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the federated hooks and the streamed fold
+# ---------------------------------------------------------------------------
+
+STREAM_MB = 2               # clients per chunk of the streamed fold
+# one NaN client and one Byzantine (x1e3) client every round
+HOOK_FAULTS = FaultTable(((OK, NAN, OK, BYZANTINE, OK),), cyclic=True)
+HOOK_REJECTED = 2           # both caught: the NaN by the finite check, the
+                            # Byzantine by the norm sentinel
+HOOK_SENTINEL = SentinelConfig(norm_mult=10.0)
+HOOK_ASYNC = AsyncConfig(max_delay=2, delay="stagger")
+
+
+def compare_counters(what: str, card, cpu) -> None:
+    """The guard's and the buffer's counters and the billed bits of two
+    runs, exactly."""
+    hg, hc = card[2], cpu[2]
+    check(set(hg) == set(hc), f"{what}: history keys {sorted(hg)} / {sorted(hc)}")
+    for k in COUNTER_KEYS + ("uplink_bits",):
+        if k in hg:
+            check(np.array_equal(hg[k], hc[k]),
+                  f"{what}: {k} card {hg[k]} cpu {hc[k]}")
+    print(f"{what}: counters card " + ", ".join(
+        f"{k} {hg[k].tolist()}" for k in COUNTER_KEYS + ("uplink_bits",) if k in hg)
+          + " (equal on the CPU)")
+
+
+def phase_hooks_smoke() -> None:
+    """Phase 9a: two rounds of each hook at SMOKE size on the card against
+    the CPU, with phase 3's model, data and tolerance, and the counters of
+    the two devices exactly equal; the two-pass round also against a
+    second card run of itself, bit for bit.
+
+    The codecs round stochastically: a payload coordinate whose rounding
+    point lies within the two devices' float noise of a level boundary
+    decodes one level apart (int8: max|row| / 127), which moves its slot's
+    cohort mean and, through AMSGrad's normalized step, the coordinates
+    hashed into that slot.  Up to one in a thousand of d may leave the
+    tolerance in a codec run (10 of 329,728, up to 5.4e-3, in two int8
+    rounds with EF on an NVIDIA H100 80GB HBM3 at 700 W)."""
+    print("== phase 9a: federated hooks, bert_100m SMOKE, card against CPU ==")
+    data = smoke_data()
+    sk = dataclasses.replace(MAIN_SKETCH, ratio=0.05, min_b=16)
+    d = sum(math.prod(s) for s in param_shapes(bert_100m.SMOKE).values())
+    runs = (("streamed (microbatch 2 of 5)", dict(microbatch=STREAM_MB)),
+            ("streamed, faults + norm sentinel (two passes)",
+             dict(microbatch=STREAM_MB, faults=HOOK_FAULTS, sentinel=HOOK_SENTINEL)),
+            ("streamed, int8 codec with EF",
+             dict(microbatch=STREAM_MB, codec=CodecConfig(bits=8))),
+            ("1-bit codec with EF", dict(codec=CodecConfig(bits=1))),
+            ("async, stagger, max_delay 2 (microbatch 2)",
+             dict(microbatch=STREAM_MB, acfg=HOOK_ASYNC)))
+    for what, kw in runs:
+        t0 = time.perf_counter()
+        card = run_rounds(bert_100m.SMOKE, sk, data, "cuda", 2, **kw)
+        t1 = time.perf_counter()
+        cpu = run_rounds(bert_100m.SMOKE, sk, data, "cpu", 2, **kw)
+        print(f"{what}: card {t1 - t0:.1f} s, cpu {time.perf_counter() - t1:.1f} s")
+        compare_counters(what, card, cpu)
+        compare_card_cpu(what, card, cpu,
+                         allowed=d // 1000 if "codec" in kw else 0)
+        if "sentinel" in kw:
+            check(list(card[2]["n_rejected"]) == [HOOK_REJECTED] * 2,
+                  f"{what}: n_rejected {card[2]['n_rejected']}")
+            again = run_rounds(bert_100m.SMOKE, sk, data, "cuda", 2, **kw)
+            same = (all(np.array_equal(card[2][k], again[2][k]) for k in card[2])
+                    and all(torch.equal(card[0][k], again[0][k]) for k in card[0]))
+            print(f"{what}: a second card run bitwise equal: {same}")
+            check(same, f"{what}: two card runs differ")
+
+
+def run_counted(name: str, rounds: int, counters: dict, peak4: float,
+                **round_kw):
+    """``rounds`` rounds of bert_100m at full width through ``run_rounds``,
+    every count in ``counters`` set to 0 just before and read just after;
+    prints each round's loss, counters and host ms, and the peak device
+    memory beside phase 4's of this run (``peak4``).  Returns (history,
+    launches, the steady rounds' ms, peak GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+
+    def per_round(t, params, state, hist):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), {k: c.n for k, c in counters.items()}))
+
+    for c in counters.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    params, _, hist = run_rounds(bert_100m.CONFIG, MAIN_SKETCH, full_data(), "cuda",
+                                 rounds, per_round, **round_kw)
+    torch.cuda.synchronize()
+    launches = {k: c.n for k, c in counters.items()}
+    steady = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    for t in range(rounds):
+        print(f"{name} round {t}: " + ", ".join(
+            f"{k} {hist[k][t]:.6g}" for k in hist) + f"; launches {marks[t][1]}"
+              + (f"; round ms {steady[t - 1]:.1f}" if t else
+                 f"; first round (with set-up) {(marks[0][0] - t0) * 1e3:.1f} ms"))
+    for k, v in params.items():
+        check(bool(torch.isfinite(v).all()), f"{name}: param {k} not finite")
+    check(all(math.isfinite(x) for x in hist["loss"]), f"{name}: loss not finite")
+    peak = peak_gib()
+    print(f"{name}: launches in the run {launches}; steady round ms "
+          f"{', '.join(f'{x:.1f}' for x in steady)}; peak device memory "
+          f"{peak:.2f} GiB (phase 4's materialized round in this run: {peak4:.2f} GiB)")
+    return hist, launches, steady, peak
+
+
+def phase_streamed_full(peak4: float) -> int:
+    """Phase 9b: three streamed SAFL rounds of bert_100m at full width
+    (microbatch 2 of 5: chunks of 2, 2 and a masked 1) under the faults of
+    ``HOOK_FAULTS``, the norm sentinel (two passes) and the int8 codec with
+    error feedback, through B1 once per chunk per pass.  Returns B1's
+    launches."""
+    print("== phase 9b: streamed SAFL + faults + sentinel + int8 codec, "
+          "bert_100m full width ==")
+    codec = CodecConfig(bits=8, error_feedback=True)
+    b_total = make_packing_plan(MAIN_SKETCH, param_shape_tree(bert_100m.CONFIG)).b_total
+    check(b_total == 2_640_275, f"b_total {b_total}")
+    survivors = G_CLIENTS - HOOK_REJECTED
+    want_bits = float(np.float32((8 * b_total + 32) * survivors))
+    n_chunks = -(-G_CLIENTS // STREAM_MB)
+    kw = dict(microbatch=STREAM_MB, faults=HOOK_FAULTS, sentinel=HOOK_SENTINEL,
+              codec=codec)
+    hist, launches, _, _ = run_counted(
+        "bert_100m streamed", 3, {"countsketch": cs.LAUNCHES,
+                                  "countsketch_device": cs.DEVICE_LAUNCHES},
+        peak4, **kw)
+    check(list(hist["n_rejected"]) == [HOOK_REJECTED] * 3,
+          f"streamed: n_rejected {hist['n_rejected']}, scripted {HOOK_REJECTED} a round")
+    check(list(hist["n_dropped"]) == [0.0] * 3 and list(hist["diverged"]) == [0.0] * 3,
+          f"streamed: n_dropped {hist['n_dropped']}, diverged {hist['diverged']}")
+    check(all(b == want_bits for b in hist["uplink_bits"]),
+          f"streamed: uplink_bits {hist['uplink_bits']}, not (8 * {b_total} + 32) "
+          f"x {survivors} = {want_bits:.0f}")
+    want_calls = 2 * n_chunks * 3
+    check(launches["countsketch"] == want_calls,
+          f"streamed: {launches['countsketch']} B1 calls, not 2 passes x "
+          f"{n_chunks} chunks x 3 rounds = {want_calls}")
+    print(f"bert_100m streamed: uplink_bits {want_bits:.0f} a round = (8 x {b_total} "
+          f"+ 32) x {survivors} survivors; B1 {launches['countsketch']} calls = 2 passes "
+          f"x {n_chunks} chunks x 3 rounds")
+    steps = tuple((safl_module, s) for s in (
+        "client_deltas", "derive_round_params", "sk_packed_clients", "desk_packed",
+        "apply_update")) + ((codec_module, "encode_decode"),
+                            (faults_module, "corrupt_payload"),
+                            (robust_module, "masked_median"))
+    labels = {"client_deltas": lambda i: f"clients pass {1 + i // n_chunks}",
+              "sk_packed_clients": lambda i: "sketch",
+              "encode_decode": lambda i: "codec",
+              "corrupt_payload": lambda i: "guard",
+              "masked_median": lambda i: "guard",
+              "desk_packed": lambda i: "desk"}
+    round_breakdown("bert_100m streamed", bert_100m.CONFIG, MAIN_SKETCH, full_data(),
+                    steps=steps, labels=labels, **kw)
+    return launches["countsketch"]
+
+
+def async_arrival_closed_form(acfg: AsyncConfig, t: int, g: int) -> float:
+    """Round t's total arrival weight under the stagger policy with every
+    client sampled: client c of generation t - d arrives when
+    ``(c + t - d) % D == d``, at weight ``(1 + d) ** -alpha`` in float32,
+    summed by delay in the round's order."""
+    D = acfg.buffer_rounds
+    total = None
+    for d in range(D):
+        if t - d < 0 and d > 0:
+            n = 0
+        else:
+            n = sum(1 for c in range(g) if (c + t - d) % D == d)
+        w = np.float32(n) * np.float32((1.0 + d) ** -acfg.staleness_alpha)
+        total = w if total is None else np.float32(total + w)
+    return float(total)
+
+
+def phase_async_full(peak4: float) -> None:
+    """Phase 9c: three async rounds of bert_100m at full width (stagger,
+    max_delay 2: every generation's clients have popped within three
+    rounds), staged through microbatch 2; ``arrival_weight`` against its
+    closed form, and the older generations' operators timed apart."""
+    print("== phase 9c: async staleness buffer, bert_100m full width ==")
+    gen_ms: list = []
+    derive = async_module.derive_generation_params
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = derive(*args, **kwargs)
+        torch.cuda.synchronize()
+        gen_ms.append((args[2], (time.perf_counter() - t0) * 1e3))
+        return out
+
+    async_module.derive_generation_params = timed
+    try:
+        hist, launches, steady, _ = run_counted(
+            "bert_100m async", 3, {"countsketch": cs.LAUNCHES}, peak4,
+            microbatch=STREAM_MB, acfg=HOOK_ASYNC)
+    finally:
+        async_module.derive_generation_params = derive
+    want = [async_arrival_closed_form(HOOK_ASYNC, t, G_CLIENTS) for t in range(3)]
+    print(f"bert_100m async: arrival_weight {hist['arrival_weight'].tolist()}, "
+          f"closed form {want}; derive_generation_params (generation, ms): "
+          + ", ".join(f"({g}, {ms:.1f})" for g, ms in gen_ms))
+    check([float(x) for x in hist["arrival_weight"]] == want,
+          f"async: arrival_weight {hist['arrival_weight']} != closed form {want}")
+    check(launches["countsketch"] == 3 * -(-G_CLIENTS // STREAM_MB),
+          f"async: {launches['countsketch']} B1 calls")
+    check(len(gen_ms) == 3 * (HOOK_ASYNC.buffer_rounds - 1),
+          f"async: {len(gen_ms)} generation operators derived")
+
+
+STREAM_F, STREAM_C = 32, 10     # the stream workload's classifier
+
+
+def stream_loss(p, b):
+    logits = b["x"] @ p["W"] + p["b"]
+    return -torch.mean(torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                                    b["y"][..., None]))
+
+
+def phase_stream_workload() -> None:
+    """Phase 9d: the reference's stream workload (benchmarks/run.py
+    ``stream_rows``) at G = 2,048 and 8,192: the 330-parameter linear
+    classifier on the Gaussian-mixture sampler, balanced count-sketch at
+    ratio 0.25, AMSGrad lr 0.05, client lr 0.1, K = 1, 2 samples a client,
+    microbatch 1,024.  The round's own peak (above what it was handed, the
+    batch included) must not grow with G by more than the batch's bytes."""
+    print("== phase 9d: the stream workload (linear classifier), G = 2,048 "
+          "and 8,192 ==")
+    sk = SketchConfig(kind="countsketch", ratio=0.25, min_b=64)
+    cfg = SAFLConfig(sketch=sk, server=AdaConfig(name="amsgrad", lr=0.05),
+                     client_lr=0.1, local_steps=1)
+    fresh = lambda: {"W": torch.zeros((STREAM_F, STREAM_C), device="cuda"),
+                     "b": torch.zeros((STREAM_C,), device="cuda")}
+    plan = make_packing_plan(sk, fresh())
+    base_fn = functools.partial(safl_round, cfg, stream_loss, plan=plan)
+    rows = {}
+    for g in (2_048, 8_192):
+        peaks: list = []
+
+        def round_fn(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out = base_fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() - before)
+            return out
+
+        sampler = GaussianClsData(ClsDataConfig(
+            num_features=STREAM_F, num_classes=STREAM_C, num_clients=g,
+            dirichlet_alpha=0.0, seed=0)).device_sampler(2, 1)
+        marks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, _, hist = run_scan(
+            round_fn, sampler, fresh(), init_safl(cfg, fresh()), rounds=2,
+            key=prng.key(1000), chunk_size=1, microbatch=1024,
+            on_chunk=lambda *a: (torch.cuda.synchronize(),
+                                 marks.append(time.perf_counter())))
+        ms = [(b - a) * 1e3 for a, b in zip([t0] + marks, marks)]
+        batch_bytes = g * 2 * (STREAM_F * 4 + 8)
+        rows[g] = (max(peaks), batch_bytes)
+        print(f"stream G={g}: loss {hist['loss'].tolist()}; round ms "
+              f"{', '.join(f'{x:.1f}' for x in ms)} (sampling included); the "
+              f"round's peak above its inputs {max(peaks) / 2**20:.3f} MiB; batch "
+              f"{batch_bytes / 2**20:.3f} MiB")
+        check(all(math.isfinite(x) for x in hist["loss"]), f"stream G={g}: loss")
+        for k, v in params.items():
+            check(bool(torch.isfinite(v).all()), f"stream G={g}: {k} not finite")
+    (p1, b1), (p2, b2) = rows[2_048], rows[8_192]
+    print(f"stream: round peak grew by {(p2 - p1) / 2**20:.3f} MiB from G=2,048 to "
+          f"8,192, the batch by {(b2 - b1) / 2**20:.3f} MiB")
+    check(p2 - p1 <= b2 - b1, f"stream: the round's peak grew by {p2 - p1} bytes "
+          f"with G, more than the batch's {b2 - b1}")
 
 
 def print_cs_launches(name: str, n: dict[str, int]) -> None:
@@ -1279,17 +1635,17 @@ def main() -> int:
 
     print("== phase 4: main path, bert_100m full width, count-sketch ==")
     by_name = {e["name"]: e for e in entries}
-    n = phase_full("bert_100m", bert_100m.CONFIG, MAIN_SKETCH,
-                   {"countsketch": cs.LAUNCHES,
-                    "countsketch_device": cs.DEVICE_LAUNCHES})
+    n, peak4 = phase_full("bert_100m", bert_100m.CONFIG, MAIN_SKETCH,
+                          {"countsketch": cs.LAUNCHES,
+                           "countsketch_device": cs.DEVICE_LAUNCHES})
     print_cs_launches("bert_100m", n)
     by_name["countsketch_clients"]["launches"] = n["countsketch"]
     torch.cuda.empty_cache()
     print("== phase 5: lm25m, SRHT ==")
-    n = phase_full("lm25m", LM25M, SRHT_SKETCH,
-                   {"countsketch": cs.LAUNCHES, "fwht": fw.LAUNCHES,
-                    "countsketch_device": cs.DEVICE_LAUNCHES,
-                    "fwht_device": fw.DEVICE_LAUNCHES})
+    n, _ = phase_full("lm25m", LM25M, SRHT_SKETCH,
+                      {"countsketch": cs.LAUNCHES, "fwht": fw.LAUNCHES,
+                       "countsketch_device": cs.DEVICE_LAUNCHES,
+                       "fwht_device": fw.DEVICE_LAUNCHES})
     print_cs_launches("lm25m", n)
     by_name["countsketch"]["launches"] = n["countsketch"]
     by_name["fwht_rows"]["launches"] = n["fwht"]
@@ -1305,6 +1661,16 @@ def main() -> int:
     print_cs_launches("bert_100m fetchsgd", n)
     by_name["countsketch_clients"]["launches"] += n["countsketch_uplink"]
     by_name["countsketch_resketch"]["launches"] = n["countsketch_resketch"]
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    phase_hooks_smoke()
+    torch.cuda.empty_cache()
+    by_name["countsketch_chunk"]["launches"] = phase_streamed_full(peak4)
+    torch.cuda.empty_cache()
+    phase_async_full(peak4)
+    torch.cuda.empty_cache()
+    phase_stream_workload()
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")

@@ -19,10 +19,11 @@ from typing import Optional
 import torch
 
 from repro_torch import prng
-from repro_torch.core.adaptive import apply_update
 from repro_torch.core.packed import PackingPlan
-from repro_torch.core.safl import (LossFn, SAFLConfig, Tree, client_deltas,
-                                   masked_mean, sketched_cohort_update)
+from repro_torch.core.safl import (LossFn, SAFLConfig, Tree, _f32,
+                                   _num_clients, client_deltas,
+                                   resolve_microbatch, sketched_round,
+                                   streamed_sketch_round)
 from repro_torch.core.sketch import leaf_names
 
 
@@ -65,18 +66,25 @@ def clip_trigger(cfg: ClippedSAFLConfig, delta: Tree) -> torch.Tensor:
 
 def clipped_safl_round(cfg: ClippedSAFLConfig, loss_fn: LossFn, params: Tree,
                        opt_state: dict, batch, round_key: prng.Key, *,
-                       plan: Optional[PackingPlan] = None,
-                       part_mask=None) -> tuple[dict, dict, dict]:
+                       plan: Optional[PackingPlan] = None, part_mask=None,
+                       fault_spec=None, sentinel=None, microbatch=None,
+                       codec=None) -> tuple[dict, dict, dict]:
     """One SAFL round with per-client delta clipping (heavy-tail defense).
-    ``batch`` leaves are (G, K, mb, ...) as in ``safl_round``; ``plan`` and
-    ``part_mask`` as there.  The client lr and the server lr are the
+    ``batch`` leaves are (G, K, mb, ...) as in ``safl_round``; ``plan``,
+    ``part_mask``, ``fault_spec``, ``sentinel``, ``microbatch`` and
+    ``codec`` as there: clipping acts on each client's true delta before
+    the sketch, so it composes with the streamed fold, the codec and the
+    guard as sketching does.  The client lr and the server lr are the
     config's (no schedule scales, as in the reference)."""
     base = cfg.base
-    eta = float(torch.tensor(base.client_lr, dtype=torch.float32))
-    deltas, losses = client_deltas(base, loss_fn, params, batch, eta,
-                                   clip=lambda d: clip_delta(cfg, d))
-    update = sketched_cohort_update(base.sketch, plan, params, deltas,
-                                    round_key, part_mask)
-    del deltas
-    new_params, new_opt = apply_update(base.server, opt_state, params, update)
-    return new_params, new_opt, {"loss": masked_mean(losses, part_mask)}
+    eta = _f32(base.client_lr)
+    client_fn = lambda b: client_deltas(base, loss_fn, params, b, eta,
+                                        clip=lambda d: clip_delta(cfg, d))
+    hooks = dict(plan=plan, part_mask=part_mask, fault_spec=fault_spec,
+                 sentinel=sentinel, codec=codec)
+    mb = resolve_microbatch(microbatch, _num_clients(batch))
+    if mb is not None:
+        return streamed_sketch_round(base, client_fn, params, opt_state, batch,
+                                     round_key, mb, **hooks)
+    return sketched_round(base, client_fn, params, opt_state, batch, round_key,
+                          **hooks)

@@ -189,6 +189,15 @@ def derive_round_params(plan: PackingPlan, key: prng.Key, device) -> dict:
     raise ValueError(f"unknown sketch kind: {cfg.kind}")
 
 
+def derive_generation_params(plan: PackingPlan, base_key: prng.Key, g: int,
+                             device) -> dict:
+    """Generation round ``g``'s operator from the run's base key,
+    ``derive_round_params(plan, fold_in(base_key, g))``: a delayed payload
+    sketched in round g is desketched with round g's own operator, which
+    the async buffer re-derives at pop time instead of storing it."""
+    return derive_round_params(plan, prng.fold_in(base_key, g), device)
+
+
 # ---------------------------------------------------------------------------
 # fused sk / desk over the packed buffers
 # ---------------------------------------------------------------------------
@@ -353,6 +362,16 @@ def sk_packed_clients(plan: PackingPlan, rp: dict, stacked: Tree) -> torch.Tenso
     if cfg.kind == "gaussian" and not plan.all_raw:
         return _gaussian_sk_rows(plan, rp, flat2)
     return torch.stack([sk_flat(plan, rp, f) for f in flat2])
+
+
+def sk_packed_clients_wsum(plan: PackingPlan, rp: dict, stacked: Tree,
+                           w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sketch of a chunk of stacked client trees reduced to its
+    weighted payload sum ``(b_total,)`` and its weight sum: the unit of
+    work of the streamed fold.  By linearity the chunk sums add up to the
+    sketch of the cohort's weighted delta sum."""
+    s = sk_packed_clients(plan, rp, stacked).to(torch.float32)
+    return torch.sum(s * w[:, None].to(s.dtype), dim=0), torch.sum(w)
 
 
 def roundtrip_packed(plan: PackingPlan, key: prng.Key, tree: Tree) -> dict:

@@ -1,6 +1,7 @@
 """Device-resident federated batch sampling for the round driver.
 
-Counterpart of ``repro/data/device.py::DeviceBigramSampler``.  The tokens
+Counterpart of ``repro/data/device.py::DeviceBigramSampler`` and
+``DeviceGaussianClsSampler``.  The tokens
 of client ``c`` in round ``t`` are a pure function of ``(t, c, seed)``:
 the key is ``fold_in(fold_in(key(seed), t), c)``, split into a key for the
 first token and one per later position, exactly as the reference draws
@@ -79,3 +80,80 @@ class DeviceBigramSampler:
     def round_batch(self, t: int, device="cuda") -> dict:
         """One round's batch outside the driver (tests)."""
         return self.sample(self.init_state(device), t)[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGaussianClsSampler:
+    """Gaussian-mixture classification sampler, with the protocol and the
+    determinism of ``DeviceBigramSampler``: client ``c``'s batch in round
+    ``t`` comes from ``fold_in(fold_in(key(seed), t), c)``, split into a
+    label key and a feature key.  Labels are drawn by inverse CDF on the
+    client's cumulative label row (bit for bit the reference's), features
+    are the class center plus ``prng.normal`` noise (its uniforms bit for
+    bit, ``erfinv`` within ~1e-5 relative).  All clients draw in one pass
+    over the device."""
+    centers: np.ndarray            # (C, F) class centers
+    label_cum: np.ndarray          # (G, C) per-client cumulative label probs
+    batch_per_client: int
+    local_steps: int
+    num_features: int
+    num_classes: int
+    num_clients: int
+    seed: int
+
+    @classmethod
+    def from_data(cls, data, batch_per_client: int,
+                  local_steps: int) -> "DeviceGaussianClsSampler":
+        """Build from a ``GaussianClsData`` (same centers and label skew)."""
+        cfg = data.cfg
+        cum = np.cumsum(np.asarray(data.label_probs, np.float32), axis=1)
+        return cls(centers=np.asarray(data.centers, np.float32),
+                   label_cum=cum.astype(np.float32),
+                   batch_per_client=batch_per_client, local_steps=local_steps,
+                   num_features=cfg.num_features, num_classes=cfg.num_classes,
+                   num_clients=cfg.num_clients, seed=cfg.seed)
+
+    def init_state(self, device="cuda") -> dict:
+        return {"centers": torch.as_tensor(self.centers, device=device),
+                "label_cum": torch.as_tensor(self.label_cum, device=device)}
+
+    def _draw(self, centers, label_cum, keys):
+        """(n, B, F) features and (n, B) labels of the clients whose
+        (label, feature) keys are ``keys`` and cumulative rows ``label_cum``."""
+        device = centers.device
+        B, F, C = self.batch_per_client, self.num_features, self.num_classes
+        u = prng.uniform_many([k[0] for k in keys], (B,), device)
+        y = torch.clamp(torch.sum(label_cum[:, None, :] < u[:, :, None], dim=-1),
+                        max=C - 1)
+        x = centers[y] + prng.normal_many([k[1] for k in keys], (B, F), device)
+        return x, y
+
+    def _keys(self, t: int) -> list:
+        round_key = prng.fold_in(prng.key(self.seed), t)
+        return [prng.split(prng.fold_in(round_key, c))
+                for c in range(self.num_clients)]
+
+    def _shape(self, x, y) -> dict:
+        G, K = self.num_clients, self.local_steps
+        mb = self.batch_per_client // K
+        return {"x": x.reshape(G, K, mb, self.num_features),
+                "y": y.reshape(G, K, mb)}
+
+    def sample(self, state: dict, t: int) -> tuple[dict, dict]:
+        """Draw round ``t``'s batch: x (G, K, mb, F) float32, y (G, K, mb)
+        int64."""
+        x, y = self._draw(state["centers"], state["label_cum"], self._keys(t))
+        return state, self._shape(x, y)
+
+    def round_batch(self, t: int, device="cuda") -> dict:
+        """One round's batch outside the driver (tests)."""
+        return self.sample(self.init_state(device), t)[1]
+
+    def host_round_batch(self, t: int) -> dict:
+        """The same batch drawn client by client on the host (numpy out),
+        bit for bit ``sample``'s on the CPU."""
+        state = self.init_state("cpu")
+        draws = [self._draw(state["centers"], state["label_cum"][c:c + 1], [k])
+                 for c, k in enumerate(self._keys(t))]
+        x, y = (torch.cat(v) for v in zip(*draws))
+        return {k: v.numpy() for k, v in self._shape(x, y).items()}

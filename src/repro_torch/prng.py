@@ -187,12 +187,16 @@ _NORMAL_SPAN = float(np.float32(1.0) - np.float32(_NORMAL_LO))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
+def _open_unit(f: torch.Tensor) -> torch.Tensor:
+    # [0, 1) uniforms to jax's (lo, 1): max(lo, f * (hi - lo) + lo)
+    return torch.clamp(f * _NORMAL_SPAN + _NORMAL_LO, min=_NORMAL_LO)
+
+
 def normal_uniform(k: Key, shape: Shape, device) -> torch.Tensor:
     """The uniforms ``jax.random.normal`` feeds to ``erfinv``:
     ``uniform(k, shape, minval=lo, maxval=1)``, that is
     ``max(lo, f * (hi - lo) + lo)`` on ``(-1, 1)``."""
-    f = uniform(k, shape, device)
-    return torch.clamp(f * _NORMAL_SPAN + _NORMAL_LO, min=_NORMAL_LO)
+    return _open_unit(uniform(k, shape, device))
 
 
 def normal(k: Key, shape: Shape, device) -> torch.Tensor:
@@ -200,3 +204,9 @@ def normal(k: Key, shape: Shape, device) -> torch.Tensor:
     The uniforms are the reference's bit for bit; ``erfinv`` is PyTorch's,
     within ~1e-5 relative of XLA's float32 polynomial."""
     return torch.erfinv(normal_uniform(k, shape, device)) * _SQRT2
+
+
+def normal_many(keys: Sequence[Key], shape: Shape, device) -> torch.Tensor:
+    """``stack([normal(k, shape) for k in keys])`` in one pass over the
+    device: (len(keys), *shape) float32."""
+    return torch.erfinv(_open_unit(uniform_many(keys, shape, device))) * _SQRT2

@@ -556,3 +556,108 @@ def test_baseline_round_on_card_matches_cpu(name):
                   for k in pc)
     assert outside <= int(d * cfg.topk_ratio) // 1000, outside
     assert int(sg["round"]) == int(sc["round"]) == 1
+
+
+def _tiny_streamed_setup(g=5):
+    model = ModelConfig(name="tiny", arch_type="dense", num_layers=2,
+                        d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                        vocab_size=128)
+    sketch = SketchConfig(kind="countsketch", cs_hash="independent", ratio=0.05,
+                          min_b=16, use_kernels=True)
+    cfg = SAFLConfig(sketch=sketch, server=AdaConfig(name="amsgrad", lr=0.01),
+                     client_lr=0.5, local_steps=2)
+    sampler = BigramLMData(LMDataConfig(vocab_size=128, seq_len=16,
+                                        num_clients=g, alpha=0.05)
+                           ).device_sampler(4, 2)
+    return model, cfg, sampler
+
+
+@pytest.mark.cuda
+def test_streamed_round_on_card_matches_cpu():
+    """Two streamed SAFL rounds (microbatch 2 of 5, the tail chunk masked)
+    under scripted faults, the two-pass norm sentinel and the int8 codec
+    with EF, through B1 on the card against the CPU's plain versions:
+    the guard's counters and the measured bits exactly, losses within
+    1e-4 and parameters within chip_smoke's card-against-CPU tolerance
+    (float32 matmul orders, amplified by AMSGrad's normalized step), up
+    to one in a thousand of d outside it: a payload coordinate at a
+    rounding boundary decodes one int8 level apart on the two devices and
+    moves the coordinates hashed into its slot (chip_smoke phase 9a)."""
+    _need_card()
+    from repro_torch.fed import CodecConfig, FaultTable, SentinelConfig
+    from repro_torch.fed.faults import BYZANTINE, NAN, OK
+    model, cfg, sampler = _tiny_streamed_setup()
+    faults = FaultTable(((OK, NAN, OK, BYZANTINE, OK),))
+    codec = CodecConfig(bits=8)
+
+    def run(device):
+        params = init_params(model, torch.Generator().manual_seed(0), device)
+        plan = make_packing_plan(cfg.sketch, params)
+        fn = functools.partial(safl_round, cfg, lambda p, b: loss_fn(model, p, b),
+                               plan=plan, sentinel=SentinelConfig(norm_mult=10.0))
+        state = {"opt": init_safl(cfg, params),
+                 "ef": torch.zeros((5, plan.b_total), device=device)}
+        return run_scan(fn, sampler, params, state, rounds=2, key=prng.key(1),
+                        faults=faults, microbatch=2, codec=codec)
+
+    launches = cs.LAUNCHES.n
+    pg, sg, hg = run("cuda")
+    assert cs.LAUNCHES.n == launches + 2 * 2 * 3      # 2 passes x 3 chunks x 2 rounds
+    pc, sc, hc = run("cpu")
+    for k in ("n_dropped", "n_rejected", "diverged", "uplink_bits"):
+        assert (hg[k] == hc[k]).all(), k
+    assert list(hg["n_rejected"]) == [2, 0]
+    torch.testing.assert_close(torch.from_numpy(hg["loss"]),
+                               torch.from_numpy(hc["loss"]), rtol=1e-4, atol=1e-4)
+    d = sum(p.numel() for p in pc.values())
+    outside = sum(int((~torch.isclose(pg[k].cpu(), pc[k], rtol=1e-3, atol=2e-3)).sum())
+                  for k in pc)
+    assert outside <= d // 1000, (outside, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 8])
+def test_quantize_rows_on_card_equals_cpu(bits):
+    """The codec's rows on the card bit for bit the CPU's: integer threefry
+    uniforms, an exact max, IEEE float32 division and multiplies."""
+    _need_card()
+    from repro_torch.fed.codec import CodecConfig, encode_decode
+    gen = torch.Generator().manual_seed(bits)
+    rows = torch.randn((6, 100_003), generator=gen) * torch.rand((6, 1), generator=gen)
+    rows[2] = 0.0
+    ef = torch.randn((6, 100_003), generator=gen) * 1e-3
+    codec = CodecConfig(bits=bits)
+    key = prng.fold_in(prng.key(3), 4)
+    ids = [7, 0, 3, 9, 1, 2]
+    dc, ec = encode_decode(codec, key, rows, ef, ids)
+    dg, eg = encode_decode(codec, key, rows.cuda(), ef.cuda(), ids)
+    assert torch.equal(dg.cpu(), dc) and torch.equal(eg.cpu(), ec)
+
+
+@pytest.mark.cuda
+def test_two_pass_streamed_round_on_card_repeats_bitwise():
+    """Pass 2 recomputes pass 1's payloads through B1, which sums in a
+    fixed order: two runs of the two-pass round on the card are bit for
+    bit, counters and parameters."""
+    _need_card()
+    from repro_torch.fed import FaultTable, SentinelConfig
+    from repro_torch.fed.faults import BYZANTINE, DROP, OK
+    model, cfg, sampler = _tiny_streamed_setup()
+
+    def run():
+        params = init_params(model, torch.Generator().manual_seed(0), "cuda")
+        fn = functools.partial(safl_round, cfg, lambda p, b: loss_fn(model, p, b),
+                               plan=make_packing_plan(cfg.sketch, params),
+                               sentinel=SentinelConfig(norm_mult=10.0))
+        return run_scan(fn, sampler, params, init_safl(cfg, params), rounds=2,
+                        key=prng.key(2), microbatch=2,
+                        faults=FaultTable(((OK, DROP, OK, BYZANTINE, OK),)))
+
+    (p1, s1, h1), (p2, s2, h2) = run(), run()
+    for k in h1:
+        assert (h1[k] == h2[k]).all(), k
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k
+    for name in ("m", "v", "vhat"):
+        for k in s1[name]:
+            assert torch.equal(s1[name][k], s2[name][k]), (name, k)

@@ -7,10 +7,12 @@
   a file written by either package restores in the other, arrays
   byte-equal.
 * Resume, the three cases of tests/test_resume.py on the port's own
-  ``run_scan``, and two baselines' state (topk_ef's per-client error
-  memories, FetchSGD's sketch-space momentum and error), bit for bit: every per-round stream (the sampler's tokens,
-  the cohort mask, the round key, ``kwargs_fn``) is a pure function of the
-  absolute round index, so restoring ``(params, opt, cursor)`` and
+  ``run_scan``, two baselines' state (topk_ef's per-client error
+  memories, FetchSGD's sketch-space momentum and error) and an async run
+  with its staleness ring and the codec's EF memory, bit for bit: every
+  per-round stream (the sampler's tokens, the cohort mask, the round key,
+  ``kwargs_fn``, the delays and the rounding uniforms) is a pure function
+  of the absolute round index, so restoring ``(params, opt, cursor)`` and
   re-entering the driver at ``start_round`` replays the uninterrupted run.
 """
 
@@ -34,7 +36,8 @@ from repro_torch.core.baselines import (BaselineConfig, baseline_round,
 from repro_torch.core.packed import make_packing_plan
 from repro_torch.core.safl import init_safl, safl_round
 from repro_torch.core.sketch import SketchConfig
-from repro_torch.fed import UniformParticipation
+from repro_torch.fed import (AsyncConfig, CodecConfig, UniformParticipation,
+                             init_async_state, make_async_round)
 from repro_torch.launch.driver import run_host_loop, run_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params, loss_fn
@@ -308,5 +311,42 @@ def test_baseline_resume_is_bit_identical(tmp_path, name):
                              rounds=4, key=k2, start_round=2)
     np.testing.assert_array_equal(np.concatenate([h_a["loss"], h_b["loss"]]),
                                   h_ref["loss"])
+    _assert_trees_equal(p_b, p_ref)
+    _assert_trees_equal(s_b, s_ref)
+
+
+def test_async_ring_and_codec_memory_resume_is_bit_identical(tmp_path):
+    """An async SAFL run (stagger delays, so the ring holds payloads that
+    have not arrived yet) with the int8 codec's EF memory, staged through
+    ``microbatch=2``: the state, the ring and the EF memory included,
+    checkpointed after round 3 of 5 and restored, the resumed rounds equal
+    the uninterrupted run's, params, state and history."""
+    tcfg = _cfgs(kind="countsketch", cs_hash="independent")[1]
+    _, smp = _samplers({**DATA, "vocab_size": 128, "seq_len": 16}, 2)
+    params = lambda: init_params(MODEL, torch.Generator().manual_seed(0), "cpu")
+    plan = make_packing_plan(tcfg.sketch, params())
+    acfg, codec = AsyncConfig(max_delay=2, delay="stagger"), CodecConfig(bits=8)
+    round_fn = make_async_round(tcfg, lambda p, b: loss_fn(MODEL, p, b), acfg, plan,
+                                codec=codec)
+    fresh = lambda: (params(), init_async_state(tcfg, acfg, params(), plan, 5,
+                                                codec=codec))
+    key = prng.key(13)
+    ckpt = str(tmp_path / "ck5")
+    run = functools.partial(run_scan, round_fn, smp, key=key, buffer=True,
+                            microbatch=2, bits_per_round=1)
+    p_ref, s_ref, h_ref = run(*fresh(), rounds=5)
+
+    def on_chunk(t_done, p, s, hist):
+        if t_done == 3:
+            save_checkpoint(ckpt, _cursor_state(p, s, t_done, key), step=t_done)
+
+    _, s_a, h_a = run(*fresh(), rounds=3, chunk_size=1, on_chunk=on_chunk)
+    assert s_a["buf"].abs().sum() > 0 and s_a["ef"].abs().sum() > 0
+    state, step, k2 = _restore(ckpt, fresh)
+    assert step == 3 and k2 == key
+    p_b, s_b, h_b = run(state["params"], state["opt"], rounds=5, start_round=3)
+    assert set(h_ref) == {"loss", "uplink_bits", "arrival_weight"}
+    for k in h_ref:
+        np.testing.assert_array_equal(np.concatenate([h_a[k], h_b[k]]), h_ref[k])
     _assert_trees_equal(p_b, p_ref)
     _assert_trees_equal(s_b, s_ref)

@@ -45,7 +45,8 @@ from repro_torch.core.safl import split_client_batches as t_split
 from repro_torch.core.sketch import SketchConfig as TSketch
 from repro_torch.data.synthetic import BigramLMData as TData
 from repro_torch.data.synthetic import LMDataConfig as TDataCfg
-from repro_torch.launch.driver import HISTORY_KEYS, run_host_loop, run_scan
+from repro_torch.launch.driver import (COUNTER_KEYS, HISTORY_KEYS,
+                                      run_host_loop, run_scan)
 from repro_torch.models.config import ModelConfig as TModel
 from repro_torch.models.model import init_params
 from repro_torch.models.model import loss_fn as t_loss
@@ -155,7 +156,8 @@ def test_port_scan_equals_host_loop_bitwise():
                           bits_per_round=123)
     p2, s2, h2 = run_host_loop(fn, tsmp, fresh(), t_init_safl(tcfg, fresh()),
                                rounds=3, key=prng.key(4), bits_per_round=123)
-    assert set(h1) == set(h2) == {"loss", "uplink_bits"} == set(HISTORY_KEYS)
+    assert set(h1) == set(h2) == {"loss", "uplink_bits"}
+    assert set(HISTORY_KEYS) == {"loss", "uplink_bits"} | set(COUNTER_KEYS)
     for k in h1:
         np.testing.assert_array_equal(h1[k], h2[k])
     for k in p1:
