@@ -61,19 +61,35 @@ Phases (any failed check or exception exits nonzero):
    against its closed form, the older generations' operators timed
    apart; (d) the reference's stream workload (a 330-parameter linear
    classifier, microbatch 1,024) at G = 2,048 and 8,192, the round's
-   peak memory flat in G.
+   peak memory flat in G;
+10. the host runtime: (a) two telemetry rounds each of SAFL, FedOPT,
+   SACFL and topk_ef of bert_100m SMOKE under a cohort of 2 of 5 on the
+   card against the CPU, every probe within phase 3's tolerance (the
+   cohort and clip share exactly, FedOPT's residual exactly 0), and
+   ``run_scan`` with and without ``stream=`` bit for bit on the card;
+   (b) six telemetry rounds of bert_100m at full width in chunks of 2
+   under the rollback supervisor (3 snapshots, a checkpoint every good
+   chunk, shards and a manifest), client 1's payload NaN in round 3 of
+   the original key: one rollback to round 2, B1 in every round run
+   (retried ones too), the run directory valid under the rules of
+   ``tools/check_telemetry.py``, the probes' and the snapshots' ms, the
+   peak memory, and the run's report with its profile; (c) the
+   launchers ``train_lm`` (lm25m, 20 rounds, telemetry, faults, sentinel,
+   supervised), ``sketch_size_sweep`` and ``heavy_tail``, each's wall
+   time.
 
 Phases 4, 5, 6 and 8b end with a breakdown of one round's time by step,
 and check each round's uplink bits (per-client payload times the
 cohort).
 
 The launch counts of the kernels are set to 0 just before phases 4, 5, 6,
-8b and 9b (each run) and the Gaussian full-width run, and read just after
+8b, 9b and 10b (each run) and the Gaussian full-width run, and read just after
 each; the ``kernels`` line has one entry per kernel and path (the
 count-sketch's main-path entry, timed at the uplink's shape, counts
 phases 4 and 6 and FetchSGD's uplink in 8b; its FetchSGD re-sketch entry,
 timed at G = 1, counts the re-sketch's calls in 8b; its streamed-chunk
-entry, timed at G = 2, counts 9b's calls).
+entry, timed at G = 2, counts 9b's calls; 10b's are added to the main
+path's).
 The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": ...}``.  Needs one CUDA card; exits nonzero
@@ -114,8 +130,9 @@ from repro_torch.core.clipped import (ClippedSAFLConfig,  # noqa: E402
                                       clipped_safl_round)
 from repro_torch.core.packed import (derive_round_params,  # noqa: E402
                                      make_packing_plan)
-from repro_torch.core.safl import (SAFLConfig, init_safl,  # noqa: E402
-                                   safl_round, uplink_bits_per_round)
+from repro_torch.core.safl import (SAFLConfig, fedopt_round,  # noqa: E402
+                                   init_safl, safl_round,
+                                   uplink_bits_per_round)
 from repro_torch.core.sketch import SketchConfig  # noqa: E402
 from repro_torch.data.synthetic import (BigramLMData,  # noqa: E402
                                         ClsDataConfig, GaussianClsData,
@@ -134,10 +151,21 @@ from repro_torch.kernels import countsketch as cs  # noqa: E402
 from repro_torch.kernels import fwht as fw  # noqa: E402
 from repro_torch.kernels import gaussian_sketch as gs  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
-from repro_torch.launch.driver import COUNTER_KEYS, run_scan  # noqa: E402
+from repro_torch.launch import heavy_tail, sketch_size_sweep  # noqa: E402
+from repro_torch.launch import supervisor as supervisor_module  # noqa: E402
+from repro_torch.launch import train_lm  # noqa: E402
+from repro_torch.launch.driver import (COUNTER_KEYS,  # noqa: E402
+                                       HISTORY_KEYS, run_scan)
+from repro_torch.launch.supervisor import (SupervisorConfig,  # noqa: E402
+                                           format_recovery_log,
+                                           run_supervised)
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.model import (init_params, loss_fn,  # noqa: E402
                                      param_shapes)
+from repro_torch.obs import REQUIRED_KEYS, ShardWriter, Telemetry  # noqa: E402
+from repro_torch.obs import telemetry as telemetry_module  # noqa: E402
+from repro_torch.obs import write_manifest  # noqa: E402
+from repro_torch.obs.report import load_run, render  # noqa: E402
 from repro_torch.optim.schedules import cosine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
@@ -773,14 +801,15 @@ def run_rounds(model: ModelConfig, sketch: SketchConfig, data: LMDataConfig,
                device: str, rounds: int, per_round=None, server="amsgrad",
                clip_tau=None, policy=None, baseline=None, seed: int = 0,
                microbatch=None, faults=None, sentinel=None, codec=None,
-               acfg=None):
+               acfg=None, fedopt=False, telemetry=None, stream=None):
     """``rounds`` rounds through ``run_scan`` under ``prng.key(seed)``, one
-    round a chunk: SAFL, SACFL with ``clip_tau``, the async buffer of
-    ``acfg`` or the ``baseline`` (whose own config then holds the sketch
-    and server); every client in every round, or the cohorts of
-    ``policy``; with the streamed fold's ``microbatch``, the ``faults``
-    policy, the ``sentinel`` and the ``codec`` (with error feedback, its
-    memory in the state).  ``uplink_bits`` bills the clients that
+    round a chunk: SAFL, SACFL with ``clip_tau``, FedOPT with ``fedopt``,
+    the async buffer of ``acfg`` or the ``baseline`` (whose own config then
+    holds the sketch and server); every client in every round, or the
+    cohorts of ``policy``; with the streamed fold's ``microbatch``, the
+    ``faults`` policy, the ``sentinel``, the ``codec`` (with error
+    feedback, its memory in the state), the ``telemetry`` probes and the
+    driver's ``stream``.  ``uplink_bits`` bills the clients that
     transmit."""
     cfg = safl_cfg(sketch, server)
     params = init_params(model, torch.Generator().manual_seed(0), device=device)
@@ -790,7 +819,8 @@ def run_rounds(model: ModelConfig, sketch: SketchConfig, data: LMDataConfig,
     if baseline is not None:
         plan = make_packing_plan(baseline.sketch, params)
         state = init_baseline_state(baseline, params, data.num_clients, plan=plan)
-        round_fn = functools.partial(baseline_round, baseline, loss, plan=plan)
+        round_fn = functools.partial(baseline_round, baseline, loss, plan=plan,
+                                     telemetry=telemetry)
     elif acfg is not None:
         plan = make_packing_plan(cfg.sketch, params)
         state = init_async_state(cfg, acfg, params, plan, data.num_clients,
@@ -804,13 +834,16 @@ def run_rounds(model: ModelConfig, sketch: SketchConfig, data: LMDataConfig,
         ef = init_codec_state(codec, data.num_clients, plan.b_total, device)
         if ef is not None:
             state = {"opt": state, "ef": ef}
-        if clip_tau is None:
+        if fedopt:
+            round_fn = functools.partial(fedopt_round, cfg, loss,
+                                         telemetry=telemetry)
+        elif clip_tau is None:
             round_fn = functools.partial(safl_round, cfg, loss, plan=plan,
-                                         sentinel=sentinel)
+                                         sentinel=sentinel, telemetry=telemetry)
         else:
             round_fn = functools.partial(
                 clipped_safl_round, ClippedSAFLConfig(base=cfg, clip_tau=clip_tau),
-                loss, plan=plan, sentinel=sentinel)
+                loss, plan=plan, sentinel=sentinel, telemetry=telemetry)
     # under a policy the driver multiplies the per-client bits by the cohort
     bits = per_client_bits(model, sketch, baseline) * (
         1 if policy else data.num_clients)
@@ -818,7 +851,7 @@ def run_rounds(model: ModelConfig, sketch: SketchConfig, data: LMDataConfig,
                     key=prng.key(seed), chunk_size=1, bits_per_round=bits,
                     on_chunk=per_round, participation=policy,
                     buffer=acfg is not None, faults=faults,
-                    microbatch=microbatch, codec=codec)
+                    microbatch=microbatch, codec=codec, stream=stream)
 
 
 class ClipNorms:
@@ -1600,6 +1633,318 @@ def phase_stream_workload() -> None:
           f"with G, more than the batch's {b2 - b1}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the host runtime (telemetry, shards, supervisor) and launchers
+# ---------------------------------------------------------------------------
+
+SPAN_FIELDS = ("t0", "t1", "seconds", "compile")
+RECOVERY_FIELDS = ("retry", "t_fault", "t_resume", "depth", "reason")
+
+
+def check_run_dir(run_dir: str, rounds: int) -> None:
+    """The rules of tools/check_telemetry.py (which needs the reference's
+    key tuples, equal to the port's: tests/test_torch_obs.py) on a run
+    directory: the manifest's required keys; every shard row a metrics
+    row of consecutive integer rounds whose other keys are history keys
+    with numeric values; every event a span or a recovery with its
+    fields; ``rounds`` distinct rounds."""
+    with open(os.path.join(run_dir, "manifest.json")) as f:
+        man = json.load(f)
+    check(all(k in man for k in REQUIRED_KEYS), f"{run_dir}: manifest {sorted(man)}")
+    seen: set[int] = set()
+    shards = sorted(Path(run_dir).glob("metrics-*.jsonl"))
+    check(bool(shards), f"{run_dir}: no metrics shards")
+    for path in shards:
+        prev = None
+        for line in path.read_text().splitlines():
+            if not line.strip():
+                continue
+            row = json.loads(line)
+            t = row.get("t")
+            check(row.get("kind") == "metrics" and isinstance(t, int)
+                  and (prev is None or t == prev + 1), f"{path.name}: row {row}")
+            prev = t
+            seen.add(t)
+            for k, v in row.items():
+                check(k in ("kind", "t") or (k in HISTORY_KEYS
+                                             and isinstance(v, (int, float))),
+                      f"{path.name}: key {k} = {v!r}")
+    for line in (Path(run_dir) / "events.jsonl").read_text().splitlines():
+        ev = json.loads(line)
+        need = {"span": SPAN_FIELDS, "recovery": RECOVERY_FIELDS}.get(ev.get("kind"))
+        check(need is not None and all(k in ev for k in need), f"event {ev}")
+    check(len(seen) == rounds, f"{run_dir}: {len(seen)} distinct rounds, not {rounds}")
+
+
+def compare_probes(what: str, card: dict, cpu: dict) -> None:
+    """Each probe of a card run against the CPU run's, round by round:
+    ``cohort`` and ``clip_frac`` exactly, the rest within phase 3's
+    tolerance (its losses' rtol 1e-4, atol 1e-4)."""
+    keys = sorted(set(card) & set(PROBE_KEYS_ALL))
+    check(set(card) == set(cpu), f"{what}: history keys {sorted(card)} / {sorted(cpu)}")
+    worst = {}
+    for k in keys:
+        a, b = np.asarray(card[k], np.float64), np.asarray(cpu[k], np.float64)
+        if k in ("cohort", "clip_frac"):
+            check(np.array_equal(a, b), f"{what}: {k} card {a} cpu {b}")
+        else:
+            check(np.allclose(a, b, rtol=1e-4, atol=1e-4),
+                  f"{what}: {k} card {a} cpu {b}")
+        worst[k] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+    print(f"{what}: probes " + ", ".join(f"{k} {card[k].tolist()}" for k in keys))
+    print(f"{what}: largest relative gap card vs cpu " +
+          ", ".join(f"{k} {v:.1e}" for k, v in worst.items()))
+
+
+PROBE_KEYS_ALL = telemetry_module.PROBE_KEYS
+TEL_POLICY = dict(num_clients=G_CLIENTS, frac=0.4, seed=123)
+
+
+def phase_telemetry_smoke() -> None:
+    """Phase 10a: two telemetry rounds each of SAFL, FedOPT, SACFL (tau
+    0.5) and topk_ef of bert_100m SMOKE under a cohort of 2 of 5, on the
+    card against the CPU; then SAFL with and without ``stream=`` on the
+    card, bit for bit.  The parameters are held as in phases 3 and 8a:
+    topk_ef may move up to one in a thousand of its k kept coordinates
+    (a threshold tie), FedOPT up to one in a thousand of d (AMSGrad's
+    normalized first step on raw deltas near zero turns float noise into
+    a step; ROADMAP section C)."""
+    print("== phase 10a: telemetry rounds, bert_100m SMOKE, card against CPU ==")
+    t0 = time.perf_counter()
+    data = smoke_data()
+    sk = dataclasses.replace(MAIN_SKETCH, ratio=0.05, min_b=16)
+    tel = Telemetry()
+    d = bert_100m_smoke_d()
+    runs = {"safl": ({}, 0), "fedopt": ({"fedopt": True}, d // 1000),
+            "sacfl": ({"clip_tau": 0.5}, 0),
+            "topk_ef": ({"baseline": baseline_cfg("topk_ef", sk)},
+                        int(d * sk.ratio) // 1000)}
+    for name, (kw, allowed) in runs.items():
+        out = {d: run_rounds(bert_100m.SMOKE, sk, data, d, 2, telemetry=tel,
+                             policy=UniformParticipation(**TEL_POLICY), **kw)
+               for d in ("cuda", "cpu")}
+        hg, hc = out["cuda"][2], out["cpu"][2]
+        compare_probes(f"{name} telemetry", hg, hc)
+        check(list(hg["cohort"]) == [2.0, 2.0], f"{name}: cohort {hg['cohort']}")
+        if name == "fedopt":
+            check(list(hg["residual"]) == list(hc["residual"]) == [0.0, 0.0],
+                  f"fedopt: residual card {hg['residual']} cpu {hc['residual']}")
+        if name == "sacfl":
+            check("clip_frac" in hg, "sacfl: no clip_frac probe")
+        if name == "topk_ef":
+            check("ef_norm" in hg and "residual" not in hg, f"topk_ef: {sorted(hg)}")
+        compare_card_cpu(f"{name} telemetry", out["cuda"], out["cpu"], allowed)
+
+    seen = []
+    with tempfile.TemporaryDirectory() as tmp:
+        pa, sa, ha = run_rounds(bert_100m.SMOKE, sk, data, "cuda", 3, telemetry=tel)
+        pb, sb, hb = run_rounds(bert_100m.SMOKE, sk, data, "cuda", 3, telemetry=tel,
+                                stream=ShardWriter(tmp),
+                                per_round=lambda t, p, s, h: seen.append(h))
+        rows = load_run(tmp)["rows"]
+    check(hb == {} and len(seen) == 3 and len(rows) == 3, "stream: history or rows")
+    for k in ha:
+        check(np.array_equal(np.concatenate([h[k] for h in seen]), ha[k])
+              and [r[k] for r in rows] == [float(x) for x in ha[k]],
+              f"stream: {k} differs from the unstreamed run's")
+    for k in pa:
+        check(torch.equal(pa[k], pb[k]), f"stream: param {k} differs")
+    for name in ("m", "v", "vhat"):
+        for k in sa[name]:
+            check(torch.equal(sa[name][k], sb[name][k]), f"stream: {name}/{k} differs")
+    print("stream: params, opt state and history bitwise equal with and without "
+          f"stream= on the card; the shard rows equal the history; phase 10a: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def bert_100m_smoke_d() -> int:
+    return sum(math.prod(s) for s in param_shapes(bert_100m.SMOKE).values())
+
+
+class NaNOnce:
+    """Client 1's payload is NaN in round ``t`` of the run's original key
+    only: unguarded, it poisons the server update, and a rekeyed retry is
+    clean (tests/test_faults.py::_TransientFaults)."""
+
+    def __init__(self, key0, t: int):
+        self.key0, self.t = key0, t
+
+    def spec(self, t, base_key, device):
+        codes = [OK] * G_CLIENTS
+        if base_key == self.key0 and t == self.t:
+            codes[1] = NAN
+        return faults_module._spec_from_codes(
+            torch.tensor(codes, dtype=torch.int32, device=device), 1e3)
+
+
+class Timed:
+    """Within ``with``: replaces ``module.name`` with a wrapper that records
+    each call's host ms, the device synchronised around it."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.ms = module, name, []
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_supervised_full(peak4: float) -> int:
+    """Phase 10b: six telemetry rounds of bert_100m at full width in chunks
+    of 2 under the rollback supervisor (at most 3 snapshots), streamed to
+    shards and a manifest, checkpointed every good chunk, with client 1's
+    payload NaN in round 3 of the original key.  Returns B1's launches."""
+    print("== phase 10b: supervised telemetry run, bert_100m full width ==")
+    model, rounds, chunk, fault_t = bert_100m.CONFIG, 6, 2, 3
+    cfg = safl_cfg(MAIN_SKETCH)
+    key = prng.key(0)
+
+    def fresh():
+        params = init_params(model, torch.Generator().manual_seed(0), device="cuda")
+        return params, init_safl(cfg, params)
+
+    sampler = BigramLMData(full_data()).device_sampler(batch_per_client=8,
+                                                       local_steps=2)
+    round_fn = functools.partial(
+        safl_round, cfg, lambda p, b: loss_fn(model, p, b), telemetry=Telemetry(),
+        plan=make_packing_plan(cfg.sketch, param_shape_tree(model)))
+    faults = NaNOnce(key, fault_t)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = supervised_run(tmp, fresh, round_fn, sampler, faults, key,
+                                  rounds, chunk, peak4)
+    print(f"phase 10b: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def supervised_run(tmp, fresh, round_fn, sampler, faults, key, rounds, chunk,
+                   peak4) -> int:
+    """Phase 10b's run and checks, its files under ``tmp``.  No frame here
+    keeps the initial weights: after the rollback the supervisor holds
+    only the relaunched snapshot on the card."""
+    import repro_torch.checkpoint.io as checkpoint_io
+    run_dir = os.path.join(tmp, "obs")
+    stream = ShardWriter(run_dir)
+    write_manifest(run_dir, run="chip_smoke 10b", sketch=MAIN_SKETCH,
+                   config={"model": "bert_100m", "rounds": rounds, "chunk": chunk},
+                   guard_pins=None)
+    starts = []
+
+    def launch(p, s, *, key, start_round, on_chunk):
+        starts.append(start_round)
+        return run_scan(round_fn, sampler, p, s, rounds=rounds, key=key,
+                        chunk_size=chunk, start_round=start_round,
+                        on_chunk=on_chunk, faults=faults, stream=stream)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cs.LAUNCHES.n = 0
+    t0 = time.perf_counter()
+    with Timed(telemetry_module, "telemetry_probes") as probes, \
+            Timed(supervisor_module, "_host") as snap, \
+            Timed(checkpoint_io, "save_checkpoint") as ckpt:
+        p, s, hist, log = run_supervised(
+            launch, *fresh(), rounds=rounds, key=key,
+            config=SupervisorConfig(max_retries=2, keep_snapshots=3),
+            ckpt_path=os.path.join(tmp, "ckpt"), stream=stream)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cs.LAUNCHES.n
+    peak = peak_gib()
+    print(format_recovery_log(log))
+    recs = [e for e in load_run(run_dir)["events"] if e["kind"] == "recovery"]
+    check(hist == {} and len(log) == 1 and len(recs) == 1
+          and log[0]["t_resume"] == recs[0]["t_resume"] == 2,
+          f"supervised: recovery log {log}, events {recs}")
+    check(starts == [0, 2], f"supervised: launches from rounds {starts}")
+    check(all(bool(torch.isfinite(v).all()) for v in p.values()),
+          "supervised: final params not finite")
+    check(all(bool(torch.isfinite(x).all()) for m in ("m", "v", "vhat")
+              for x in s[m].values()), "supervised: final state not finite")
+    rows = load_run(run_dir)["rows"]
+    last = {r["t"]: r for r in rows}
+    check(sorted(last) == list(range(rounds)), f"supervised: rounds {sorted(last)}")
+    for t, r in last.items():
+        check(all(math.isfinite(r[k]) for k in r if k not in ("kind", "t"))
+              and r["cohort"] == G_CLIENTS, f"supervised: round {t} row {r}")
+    ran = 2 * chunk + (rounds - 2)              # 0-3, then 2-5 after the rollback
+    check(launches == ran, f"supervised: B1 {launches} calls, not one in each "
+          f"of the {ran} rounds run")
+    check_run_dir(run_dir, rounds)
+    spans = [e for e in load_run(run_dir)["events"] if e["kind"] == "span"]
+    per_round = [e["seconds"] * 1e3 / (e["t1"] - e["t0"]) for e in spans]
+    probe_ms = probes.ms[1:]
+    print(f"supervised: {len(rows)} shard rows for {rounds} rounds (last wins); "
+          f"residual {[round(last[t]['residual'], 6) for t in range(rounds)]}; "
+          f"delta_norm {[round(last[t]['delta_norm'], 6) for t in range(rounds)]}; "
+          f"vhat_norm {last[rounds - 1]['vhat_norm']:.6g}; cohort 5 every round")
+    print(f"supervised: B1 {launches} calls in {ran} rounds; chunk ms a round "
+          f"{', '.join(f'{x:.1f}' for x in per_round)} (spans, with the probes); "
+          f"probes ms {', '.join(f'{x:.1f}' for x in probe_ms)} (after the first; "
+          f"phase 4's steady rounds above are the same round without them)")
+    snap_ms = [a + b for a, b in zip(snap.ms[::2], snap.ms[1::2])]
+    print(f"supervised: snapshot (host copy of params and AMSGrad state) ms "
+          f"{', '.join(f'{x:.1f}' for x in snap_ms)}; save_checkpoint ms "
+          f"{', '.join(f'{x:.1f}' for x in ckpt.ms)}; whole run {wall:.1f} s; peak "
+          f"device memory {peak:.2f} GiB (phase 4's in this run: {peak4:.2f} GiB)")
+    report = render(run_dir, profile=True)
+    print(report)
+    check("profile section unavailable" not in report, "report: profile failed")
+    del p, s
+    return launches
+
+
+def capture(fn, *args):
+    """``fn(*args)``'s result, its standard output (echoed) and wall seconds."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    print(buf.getvalue(), end="")
+    return out, buf.getvalue(), sec
+
+
+def phase_launchers() -> None:
+    """Phase 10c: the port's launchers on the card: train_lm (lm25m, 20
+    rounds, telemetry, faults 0.15 with the sentinel, supervised with 2
+    retries), the sketch-size sweep (its monotonicity assertion) and the
+    heavy-tail comparison."""
+    print("== phase 10c: the launchers on the card ==")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "lm")
+        _, out, sec = capture(train_lm.main, [
+            "--rounds", "20", "--telemetry", "--faults", "0.15", "--sentinel",
+            "--max-retries", "2", "--ckpt", ckpt])
+        check("telemetry: rounds=20" in out, "train_lm: no summary line")
+        check_run_dir(ckpt + "_obs", 20)
+        check(os.path.exists(ckpt + ".npz"), "train_lm: no checkpoint")
+    print(f"train_lm: {sec:.1f} s wall (lm25m, 20 rounds, set-up included); "
+          "shards valid")
+    results, _, sec = capture(sketch_size_sweep.main, [])
+    check(all(math.isfinite(v) for v in results.values()), f"sweep: {results}")
+    print(f"sketch_size_sweep: {sec:.1f} s wall")
+    errs, _, sec = capture(heavy_tail.main, [])
+    check(all(math.isfinite(c[-1]) for c in errs.values()), "heavy_tail: not finite")
+    print(f"heavy_tail: {sec:.1f} s wall")
+
+
 def print_cs_launches(name: str, n: dict[str, int]) -> None:
     print(f"{name}: countsketch route called {n['countsketch']} times, "
           f"{n['countsketch_device']} device launches (kernels and memsets), "
@@ -1671,6 +2016,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_stream_workload()
     print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    phase_telemetry_smoke()
+    torch.cuda.empty_cache()
+    by_name["countsketch_clients"]["launches"] += phase_supervised_full(peak4)
+    torch.cuda.empty_cache()
+    phase_launchers()
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")

@@ -10,6 +10,7 @@ untouched.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping
 
 import torch
@@ -102,3 +103,11 @@ def apply_update(cfg: AdaConfig, state: dict, params: Tree, update: Tree,
     new_params = {k: (f32(p) - lr * direction[k]).to(p.dtype)
                   for k, p in params.items()}
     return new_params, new_state
+
+
+def opt_state_bytes(cfg: AdaConfig, params: Mapping[str, Any]) -> int:
+    """The optimizer state's memory in bytes (``params``: anything with
+    ``.shape``): one moment tree per buffer the optimizer keeps."""
+    n = sum(math.prod(p.shape) for p in params.values())
+    per = {"sgd": 0, "sgdm": 1, "adagrad": 1, "adam": 2, "amsgrad": 3}[cfg.name]
+    return n * per * torch.empty((), dtype=cfg.moment_dtype).element_size()

@@ -222,18 +222,24 @@ def init_baseline_state(cfg: BaselineConfig, params: Tree, num_clients: int,
 def baseline_round(cfg: BaselineConfig, loss_fn: LossFn, params: Tree,
                    state: dict, batch: Mapping[str, torch.Tensor],
                    key: prng.Key, *, plan: Optional[PackingPlan] = None,
-                   part_mask=None) -> tuple[dict, dict, dict]:
+                   part_mask=None, telemetry=None) -> tuple[dict, dict, dict]:
     """One baseline round; ``batch`` leaves are (G, K, mb, ...).  The input
     ``state`` is never mutated.  ``plan`` is the static packing layout,
     built once by multi-round callers.  ``part_mask`` (optional, (G,) 0/1
     or the weighted dict) restricts the server aggregation to the round's
     sampled cohort: unsampled clients transmit nothing, their error-feedback
-    memories stay frozen, and an all-ones mask is bit for bit no mask."""
+    memories stay frozen, and an all-ones mask is bit for bit no mask.
+    ``telemetry`` (``obs.Telemetry``) adds the cohort-mean delta norm, the
+    effective cohort, the moment norms and, where the variant carries one,
+    the error-feedback memory's norm; no update or residual probe (most
+    baselines apply a biased compressed update, so the desketch residual
+    is not their observable)."""
     eta = _f32(cfg.client_lr)
     rnd = state["round"]
     device = next(iter(params.values())).device
     scfg = cfg._safl()
     deltas, losses = client_deltas(scfg, loss_fn, params, batch, eta)
+    probe_deltas = deltas if telemetry is not None else None
     metrics = {"loss": masked_mean(losses, part_mask)}
     g = next(iter(deltas.values())).shape[0]
 
@@ -342,7 +348,12 @@ def baseline_round(cfg: BaselineConfig, loss_fn: LossFn, params: Tree,
     else:
         raise ValueError(f"unknown baseline {cfg.name}")
 
-    return params, {**state, "round": rnd + 1}, metrics
+    new_state = {**state, "round": rnd + 1}
+    if telemetry is not None:
+        from repro_torch.obs.telemetry import telemetry_probes
+        metrics.update(telemetry_probes(telemetry, deltas=probe_deltas,
+                                        part_mask=part_mask, state=new_state))
+    return params, new_state, metrics
 
 
 def uplink_bits(cfg: BaselineConfig, params: Mapping[str, Any]) -> int:

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.packed import PackingPlan
-from repro_torch.core.safl import (LossFn, SAFLConfig, Tree, _f32,
+from repro_torch.core.safl import (_CODEC_TELEMETRY, _STREAMED_TELEMETRY,
+                                   LossFn, SAFLConfig, Tree, _f32,
                                    _num_clients, client_deltas,
                                    resolve_microbatch, sketched_round,
                                    streamed_sketch_round)
@@ -67,24 +68,36 @@ def clip_trigger(cfg: ClippedSAFLConfig, delta: Tree) -> torch.Tensor:
 def clipped_safl_round(cfg: ClippedSAFLConfig, loss_fn: LossFn, params: Tree,
                        opt_state: dict, batch, round_key: prng.Key, *,
                        plan: Optional[PackingPlan] = None, part_mask=None,
-                       fault_spec=None, sentinel=None, microbatch=None,
-                       codec=None) -> tuple[dict, dict, dict]:
+                       fault_spec=None, sentinel=None, telemetry=None,
+                       microbatch=None, codec=None) -> tuple[dict, dict, dict]:
     """One SAFL round with per-client delta clipping (heavy-tail defense).
     ``batch`` leaves are (G, K, mb, ...) as in ``safl_round``; ``plan``,
-    ``part_mask``, ``fault_spec``, ``sentinel``, ``microbatch`` and
-    ``codec`` as there: clipping acts on each client's true delta before
-    the sketch, so it composes with the streamed fold, the codec and the
-    guard as sketching does.  The client lr and the server lr are the
-    config's (no schedule scales, as in the reference)."""
+    ``part_mask``, ``fault_spec``, ``sentinel``, ``telemetry``,
+    ``microbatch`` and ``codec`` as there: clipping acts on each client's
+    true delta before the sketch, so it composes with the streamed fold,
+    the codec and the guard as sketching does.  With ``telemetry.clip``
+    the round adds the ``clip_frac`` probe: the effective cohort's share
+    whose pre-clip delta norm exceeded tau.  The client lr and the server
+    lr are the config's (no schedule scales, as in the reference)."""
+    if codec is not None and telemetry is not None:
+        raise ValueError(_CODEC_TELEMETRY)
     base = cfg.base
     eta = _f32(base.client_lr)
-    client_fn = lambda b: client_deltas(base, loss_fn, params, b, eta,
-                                        clip=lambda d: clip_delta(cfg, d))
+    triggers = [] if telemetry is not None and telemetry.clip else None
+
+    def clip(d):
+        if triggers is not None:
+            triggers.append(clip_trigger(cfg, d))
+        return clip_delta(cfg, d)
+
+    client_fn = lambda b: client_deltas(base, loss_fn, params, b, eta, clip=clip)
     hooks = dict(plan=plan, part_mask=part_mask, fault_spec=fault_spec,
                  sentinel=sentinel, codec=codec)
     mb = resolve_microbatch(microbatch, _num_clients(batch))
     if mb is not None:
+        if telemetry is not None:
+            raise ValueError(_STREAMED_TELEMETRY)
         return streamed_sketch_round(base, client_fn, params, opt_state, batch,
                                      round_key, mb, **hooks)
     return sketched_round(base, client_fn, params, opt_state, batch, round_key,
-                          **hooks)
+                          telemetry=telemetry, triggers=triggers, **hooks)

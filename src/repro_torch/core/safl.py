@@ -3,8 +3,8 @@
 Counterpart of ``repro/core/safl.py``: the materialized round, the
 streamed fold over client microbatches (``microbatch=``) and the
 uncompressed FedOPT round, with the federated hooks ``part_mask``,
-``fault_spec``, ``sentinel`` and ``codec`` (``repro_torch.fed``).  One
-round:
+``fault_spec``, ``sentinel`` and ``codec`` (``repro_torch.fed``), and the
+``telemetry`` probes (``repro_torch.obs``).  One round:
 
   1. every client starts from the global iterate and runs K local SGD
      steps with client lr eta;
@@ -155,8 +155,8 @@ def _unwrap_ef(codec, opt_state: dict) -> tuple[dict, Optional[torch.Tensor]]:
 def sketched_round(cfg: SAFLConfig, client_fn, params: Tree, opt_state: dict,
                    batch, round_key: prng.Key, *, lr_scale: float = 1.0,
                    plan: Optional[PackingPlan] = None, part_mask=None,
-                   fault_spec=None, sentinel=None,
-                   codec=None) -> tuple[dict, dict, dict]:
+                   fault_spec=None, sentinel=None, codec=None, telemetry=None,
+                   triggers: Optional[list] = None) -> tuple[dict, dict, dict]:
     """A materialized sketched round: ``client_fn(batch) -> (deltas,
     losses)`` gives the stacked (G, ...) deltas and (G,) losses, and the
     server half follows the reference's order: the sketch with the round's
@@ -164,7 +164,11 @@ def sketched_round(cfg: SAFLConfig, client_fn, params: Tree, opt_state: dict,
     memory of unsampled clients frozen); the fault and sentinel guard
     (``fed.robust.guard_uplink``); the one masked mean; the desk;
     ``apply_update``; the measured uplink bits; the empty-cohort carry and
-    the divergence flag.  A hook left ``None`` is skipped in Python."""
+    the divergence flag; then, with ``telemetry``, the probes from the
+    deltas, the update, the effective mask and the new state (and the
+    clip share of ``triggers``, the (G,) list of clip triggers ``client_fn``
+    fills for SACFL).  A hook left ``None`` is skipped in Python; without
+    telemetry the deltas are freed right after the sketch."""
     device = _device(params)
     opt_orig = opt_state
     opt_state, ef = _unwrap_ef(codec, opt_state)
@@ -173,6 +177,7 @@ def sketched_round(cfg: SAFLConfig, client_fn, params: Tree, opt_state: dict,
     deltas, losses = client_fn(batch)
     rp = derive_round_params(plan, round_key, device)
     sketches = sk_packed_clients(plan, rp, deltas)
+    probe_deltas = deltas if telemetry is not None else None
     del deltas
     if codec is not None:
         from repro_torch.fed.codec import encode_decode
@@ -204,7 +209,26 @@ def sketched_round(cfg: SAFLConfig, client_fn, params: Tree, opt_state: dict,
         new_params, new_opt = carry_if_empty(part_mask, (new_params, new_opt),
                                              (params, opt_orig))
         counters["diverged"] = divergence_flag(sentinel, loss)
-    return new_params, new_opt, {"loss": loss, **counters}
+    metrics = {"loss": loss, **counters}
+    if telemetry is not None:
+        # part_mask is the effective mask here (the guard rebinds it), so
+        # the probes see the cohort the mean saw
+        from repro_torch.obs.telemetry import telemetry_probes
+        metrics.update(telemetry_probes(
+            telemetry, deltas=probe_deltas, update=update, part_mask=part_mask,
+            state=new_opt, clip_frac=None if triggers is None
+            else masked_mean(torch.stack(triggers), part_mask)))
+    return new_params, new_opt, metrics
+
+
+_STREAMED_TELEMETRY = (
+    "telemetry probes read the materialized (G, ...) delta stack; the "
+    "streamed microbatch fold never builds it: run telemetry with "
+    "microbatch=None")
+_CODEC_TELEMETRY = (
+    "telemetry probes read the bare server opt state; under "
+    "codec.error_feedback the round state is the wrapped {'opt', 'ef'} "
+    "dict: run telemetry without a codec")
 
 
 # ---------------------------------------------------------------------------
@@ -402,8 +426,8 @@ def safl_round(cfg: SAFLConfig, loss_fn: LossFn, params: Tree,
                round_key: prng.Key, eta_scale: float = 1.0,
                lr_scale: float = 1.0, *,
                plan: Optional[PackingPlan] = None, part_mask=None,
-               fault_spec=None, sentinel=None, microbatch=None,
-               codec=None) -> tuple[dict, dict, dict]:
+               fault_spec=None, sentinel=None, telemetry=None,
+               microbatch=None, codec=None) -> tuple[dict, dict, dict]:
     """One full SAFL round.  ``batch`` leaves are shaped (G, K, mb, ...).
     ``plan`` is the static packing layout (built once by multi-round
     callers).  ``part_mask`` (optional, (G,) 0/1 or the weighted dict)
@@ -413,33 +437,41 @@ def safl_round(cfg: SAFLConfig, loss_fn: LossFn, params: Tree,
     (``fed.robust.SentinelConfig``) rejects bad ones before the mean,
     ``codec`` (``fed.codec.CodecConfig``) quantizes the payload rows and
     bills the measured ``uplink_bits`` (with ``codec.error_feedback`` the
-    state is the wrapped ``{"opt", "ef"}`` dict), and ``microbatch`` below
-    G streams the round over client chunks (``streamed_sketch_round``).
+    state is the wrapped ``{"opt", "ef"}`` dict), ``telemetry``
+    (``obs.Telemetry``) adds the probe scalars to the metrics, and
+    ``microbatch`` below G streams the round over client chunks
+    (``streamed_sketch_round``; it takes no telemetry).
     Returns (params, opt_state, metrics)."""
+    if codec is not None and telemetry is not None:
+        raise ValueError(_CODEC_TELEMETRY)
     eta = _f32(cfg.client_lr * eta_scale)
     client_fn = lambda b: client_deltas(cfg, loss_fn, params, b, eta)
     hooks = dict(plan=plan, part_mask=part_mask, fault_spec=fault_spec,
                  sentinel=sentinel, codec=codec)
     mb = resolve_microbatch(microbatch, _num_clients(batch))
     if mb is not None:
+        if telemetry is not None:
+            raise ValueError(_STREAMED_TELEMETRY)
         return streamed_sketch_round(cfg, client_fn, params, opt_state, batch,
                                      round_key, mb, lr_scale=lr_scale, **hooks)
     return sketched_round(cfg, client_fn, params, opt_state, batch, round_key,
-                          lr_scale=lr_scale, **hooks)
+                          lr_scale=lr_scale, telemetry=telemetry, **hooks)
 
 
 def fedopt_round(cfg: SAFLConfig, loss_fn: LossFn, params: Tree,
                  opt_state: dict, batch: Mapping[str, torch.Tensor],
                  round_key: prng.Key, eta_scale: float = 1.0,
                  lr_scale: float = 1.0, *, part_mask=None, fault_spec=None,
-                 sentinel=None, microbatch=None,
+                 sentinel=None, telemetry=None, microbatch=None,
                  codec=None) -> tuple[dict, dict, dict]:
     """Uncompressed FedOPT (Reddi et al. 2020) round: the paper's
     ambient-dimension reference line.  ``safl_round`` with the identity
     compressor: the server steps on the cohort mean of the raw deltas
     (``round_key`` is unused; it keeps the round signature).  It has no
     sketch payload, so faults, sentinels and the codec are refused;
-    ``microbatch`` below G folds the raw deltas chunk by chunk."""
+    ``microbatch`` below G folds the raw deltas chunk by chunk.  Its
+    update is the cohort mean itself, so with ``telemetry`` the
+    ``residual`` probe reads exactly 0: the sketch-noise baseline."""
     if fault_spec is not None or sentinel is not None:
         raise ValueError(
             "fault injection and payload sentinels act on the packed sketch "
@@ -453,15 +485,24 @@ def fedopt_round(cfg: SAFLConfig, loss_fn: LossFn, params: Tree,
     eta = _f32(cfg.client_lr * eta_scale)
     mb = resolve_microbatch(microbatch, _num_clients(batch))
     if mb is not None:
+        if telemetry is not None:
+            raise ValueError(_STREAMED_TELEMETRY)
         return _streamed_fedopt_round(cfg, loss_fn, params, opt_state, batch,
                                       eta, mb, lr_scale=lr_scale,
                                       part_mask=part_mask)
     deltas, losses = client_deltas(cfg, loss_fn, params, batch, eta)
     update = masked_mean_tree(deltas, part_mask)
+    probe_deltas = deltas if telemetry is not None else None
     del deltas
     params, opt_state = apply_update(cfg.server, opt_state, params, update,
                                      lr_scale=lr_scale)
-    return params, opt_state, {"loss": masked_mean(losses, part_mask)}
+    metrics = {"loss": masked_mean(losses, part_mask)}
+    if telemetry is not None:
+        from repro_torch.obs.telemetry import telemetry_probes
+        metrics.update(telemetry_probes(
+            telemetry, deltas=probe_deltas, update=update, part_mask=part_mask,
+            state=opt_state))
+    return params, opt_state, metrics
 
 
 def _streamed_fedopt_round(cfg: SAFLConfig, loss_fn: LossFn, params: Tree,

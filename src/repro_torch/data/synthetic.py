@@ -5,8 +5,11 @@ Counterpart of ``repro/data/synthetic.py`` (``LMDataConfig``,
 ``BigramLMData``, ``ClsDataConfig``, ``GaussianClsData``).  The transition
 tables, class centers and label skews are pure numpy, drawn exactly as the
 reference draws them, so both packages sample from identical
-distributions; the batches come from the device samplers
-(``data/device.py``).
+distributions.  The batches come from the device samplers
+(``data/device.py``), or from the host: ``client_batch`` and
+``round_batch`` draw with numpy's ``default_rng`` exactly as the
+reference's do, and hand the tensors to a device (tokens and labels as
+int64, the port's index type).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +48,33 @@ class BigramLMData:
             else:
                 t = base
             self.trans.append(t / t.sum(axis=1, keepdims=True))
+
+    def _client_tokens(self, client: int, batch_size: int, seed: int) -> np.ndarray:
+        cfg = self.cfg
+        rng = np.random.default_rng((seed, client))
+        cum = np.cumsum(self.trans[client], axis=1)
+        toks = np.empty((batch_size, cfg.seq_len), np.int32)
+        toks[:, 0] = rng.integers(0, cfg.vocab_size, batch_size)
+        for s in range(1, cfg.seq_len):
+            u = rng.random(batch_size)
+            toks[:, s] = (cum[toks[:, s - 1]] < u[:, None]).sum(axis=1)
+        return toks
+
+    def client_batch(self, client: int, batch_size: int, seed: int,
+                     device="cuda") -> dict:
+        """Client ``client``'s ``(batch_size, seq)`` tokens of draw ``seed``."""
+        toks = self._client_tokens(client, batch_size, seed)
+        return {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=device)}
+
+    def round_batch(self, batch_per_client: int, local_steps: int, seed: int,
+                    device="cuda") -> dict:
+        """Batch for one round: ``{"tokens": (G, K, mb, seq)}``."""
+        cfg = self.cfg
+        toks = np.stack([self._client_tokens(c, batch_per_client, seed)
+                         for c in range(cfg.num_clients)])
+        toks = toks.reshape(cfg.num_clients, local_steps,
+                            batch_per_client // local_steps, cfg.seq_len)
+        return {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=device)}
 
     def device_sampler(self, batch_per_client: int, local_steps: int):
         """The device-side sampler over the same transition matrices."""
@@ -76,6 +107,33 @@ class GaussianClsData:
         else:
             self.label_probs = np.full(
                 (cfg.num_clients, cfg.num_classes), 1.0 / cfg.num_classes)
+
+    def _client_arrays(self, client: int, batch_size: int,
+                       seed: int) -> tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng((seed, client, 7))
+        y = rng.choice(self.cfg.num_classes, size=batch_size,
+                       p=self.label_probs[client])
+        x = self.centers[y] + rng.normal(size=(batch_size,
+                                               self.cfg.num_features))
+        return x.astype(np.float32), y
+
+    def client_batch(self, client: int, batch_size: int, seed: int,
+                     device="cuda") -> dict:
+        """Client ``client``'s features ``x`` (float32) and labels ``y``."""
+        x, y = self._client_arrays(client, batch_size, seed)
+        return {"x": torch.as_tensor(x, device=device),
+                "y": torch.as_tensor(y, dtype=torch.int64, device=device)}
+
+    def round_batch(self, batch_per_client: int, local_steps: int, seed: int,
+                    device="cuda") -> dict:
+        """Batch for one round: ``x`` (G, K, mb, F) and ``y`` (G, K, mb)."""
+        per = [self._client_arrays(c, batch_per_client, seed)
+               for c in range(self.cfg.num_clients)]
+        shape = (self.cfg.num_clients, local_steps, batch_per_client // local_steps)
+        x = np.stack([p[0] for p in per]).reshape(shape + (self.cfg.num_features,))
+        y = np.stack([p[1] for p in per]).reshape(shape)
+        return {"x": torch.as_tensor(x, device=device),
+                "y": torch.as_tensor(y, dtype=torch.int64, device=device)}
 
     def device_sampler(self, batch_per_client: int, local_steps: int):
         """The device-side sampler over the same centers and label skew."""

@@ -19,18 +19,23 @@ passes ``part_mask=policy.mask(t)``, ``faults`` (``fed.faults``) passes
 older generations' operators from them.  So a run resumed at
 ``start_round`` replays the uninterrupted trajectory bit for bit.
 ``microbatch`` and ``codec`` are bound into the round as keywords; the
-sentinel and the plan are bound by the caller (``functools.partial``).
+sentinel, the telemetry config and the plan are bound by the caller
+(``functools.partial``).  ``stream`` (an ``obs.shards.ShardWriter``)
+writes each chunk's metrics to a JSONL shard and its wall time to the
+event log; it adds host I/O and nothing else.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.obs.telemetry import PROBE_KEYS
 
 # (params, state, batch, round_key, **kwargs) -> (params, state, metrics)
 RoundFn = Callable[..., tuple[Any, dict, dict]]
@@ -40,9 +45,11 @@ RoundFn = Callable[..., tuple[Any, dict, dict]]
 # buffer's arrival_weight
 COUNTER_KEYS = ("n_dropped", "n_rejected", "diverged", "arrival_weight")
 
-# every key a history dict may carry (the reference's telemetry probes come
-# with the module that produces them)
-HISTORY_KEYS = ("loss", "uplink_bits") + COUNTER_KEYS
+# every key a history dict or metric shard row may carry: which appear
+# depends on the hooks bound into the round (the counters) and on its
+# ``obs.Telemetry`` config (the probes); tools/check_telemetry.py reads the
+# reference's equal tuple
+HISTORY_KEYS = ("loss", "uplink_bits") + COUNTER_KEYS + PROBE_KEYS
 
 
 def _with_bits(metrics: dict, bits_per_round: Optional[int], mask=None,
@@ -129,37 +136,61 @@ def run_scan(round_fn: RoundFn, sampler, params, state: dict, *,
              rounds: int, key: prng.Key, chunk_size: int = 0,
              kwargs_fn=None, bits_per_round: Optional[int] = None,
              on_chunk=None, participation=None, buffer: bool = False,
-             faults=None, microbatch=None, codec=None, start_round: int = 0):
+             faults=None, microbatch=None, codec=None, start_round: int = 0,
+             stream=None):
     """Run rounds ``start_round .. rounds - 1`` in chunks of ``chunk_size``
     (0 = all in one); returns ``(params, state, history)`` with history a
     dict of ``(rounds - start_round,)`` host arrays (``loss``, and
     ``uplink_bits`` when ``bits_per_round`` is given: per round, or per
-    client under ``participation``) and the ``COUNTER_KEYS`` the bound
-    round emits.  ``kwargs_fn``, ``participation``, ``buffer`` and
-    ``faults`` are the hooks of the module docstring; ``microbatch`` (the
-    streamed fold's chunk) and ``codec`` (``fed.codec.CodecConfig``; with
-    error feedback ``state`` is the wrapped ``{"opt", "ef"}`` dict) are
-    bound into the round; ``start_round`` resumes a run at an absolute
-    round index (from a checkpointed cursor)."""
+    client under ``participation``), the ``COUNTER_KEYS`` the bound round
+    emits and the ``PROBE_KEYS`` its telemetry config selects.
+    ``kwargs_fn``, ``participation``, ``buffer`` and ``faults`` are the
+    hooks of the module docstring; ``microbatch`` (the streamed fold's
+    chunk) and ``codec`` (``fed.codec.CodecConfig``; with error feedback
+    ``state`` is the wrapped ``{"opt", "ef"}`` dict) are bound into the
+    round; ``start_round`` resumes a run at an absolute round index (from
+    a checkpointed cursor).
+
+    ``stream`` (an ``obs.shards.ShardWriter``) takes each chunk's history,
+    fetched to the host in one ``host_fetch``, as one metrics shard, and
+    the chunk's wall time as a span event; ``compile=True`` marks the
+    first chunk of each length, as in the reference (the port compiles
+    nothing per length: that chunk carries the kernels' first build and
+    launch when the process has not run them yet).  The history then
+    lives in the shards only and the returned ``history`` is ``{}``;
+    ``on_chunk`` sees each chunk's host history either way.  Parameters,
+    state and metrics are those of the unstreamed run, bit for bit."""
     round_fn = _bind(round_fn, microbatch, codec)
     chunk_size = int(chunk_size) or int(rounds)
     data_state = sampler.init_state(_device_of(params))
+    seen: set[int] = set()
     hists = []
     t = int(start_round)
     while t < rounds:
         n = min(chunk_size, rounds - t)
+        fresh = n not in seen
+        seen.add(n)
+        t_wall = time.perf_counter()
         chunk = []
         for tt in range(t, t + n):
             params, state, data_state, m = _step(
                 round_fn, sampler, params, state, data_state, key, tt,
                 bits_per_round, kwargs_fn, participation, buffer, faults)
             chunk.append(m)
-        hist = _to_host(chunk)              # ONE fetch per chunk
-        hists.append(hist)
+        if stream is not None:
+            from repro_torch.obs.shards import host_fetch
+            hist = host_fetch({k: torch.stack([h[k] for h in chunk])
+                               for k in chunk[0]})    # ONE fetch per chunk
+            dt = time.perf_counter() - t_wall
+            stream.write_chunk(t, hist)
+            stream.write_span(t, t + n, dt, compile=fresh)
+        else:
+            hist = _to_host(chunk)          # ONE fetch per chunk
+            hists.append(hist)
         t += n
         if on_chunk is not None:
             on_chunk(t, params, state, hist)
-    if not hists:                           # resumed at start_round == rounds
+    if not hists:               # streamed, or resumed at start_round == rounds
         return params, state, {}
     return params, state, {k: np.concatenate([h[k] for h in hists])
                            for k in hists[0]}

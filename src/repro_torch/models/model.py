@@ -75,6 +75,13 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return {k: shapes[k] for k in sorted(shapes, key=lambda p: p.split("/"))}
 
 
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The parameter count from the shapes alone.  ``active_only`` counts
+    the parameters a token reaches, which differs from the total only for
+    mixture-of-experts layers; the dense family here has none."""
+    return sum(math.prod(s) for s in param_shapes(cfg).values())
+
+
 def _init_leaf(generator: torch.Generator, path: str, shape,
                cfg: ModelConfig) -> torch.Tensor:
     """Fan-in scaled normal, ones for scales, zeros for biases (the

@@ -661,3 +661,68 @@ def test_two_pass_streamed_round_on_card_repeats_bitwise():
     for name in ("m", "v", "vhat"):
         for k in s1[name]:
             assert torch.equal(s1[name][k], s2[name][k]), (name, k)
+
+
+@pytest.mark.cuda
+def test_telemetry_round_on_card_matches_cpu():
+    """One SAFL round with every probe on the card (B1) against the CPU
+    (plain): the norms within rtol 1e-4, the cohort exactly, every probe
+    a float32 scalar on the round's device."""
+    _need_card()
+    from repro_torch.obs import Telemetry
+    model, cfg, sampler = _tiny_streamed_setup()
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = init_params(model, torch.Generator().manual_seed(0), device)
+        fn = functools.partial(safl_round, cfg, lambda p, b: loss_fn(model, p, b),
+                               plan=make_packing_plan(cfg.sketch, params),
+                               telemetry=Telemetry())
+        batch = sampler.sample(sampler.init_state(device), 0)[1]
+        out[device] = fn(params, init_safl(cfg, params), batch, prng.key(4))[2]
+    for k, v in out["cuda"].items():
+        assert v.device.type == "cuda" and v.dtype == torch.float32 and v.dim() == 0, k
+    assert set(out["cuda"]) == set(out["cpu"])
+    assert float(out["cuda"]["cohort"]) == float(out["cpu"]["cohort"]) == 5.0
+    for k in out["cpu"]:
+        torch.testing.assert_close(out["cuda"][k].cpu(), out["cpu"][k],
+                                   rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_supervised_rollback_relaunches_on_the_card():
+    """A transient NaN client (rounds 2 and 3 under the original key) rolls
+    the supervisor back to round 2; the relaunched rounds run on the card,
+    through B1, and finish finite."""
+    _need_card()
+    from repro_torch.fed.faults import NAN, OK, _spec_from_codes
+    from repro_torch.launch.supervisor import SupervisorConfig, run_supervised
+    model, cfg, sampler = _tiny_streamed_setup()
+    params = init_params(model, torch.Generator().manual_seed(0), "cuda")
+    fn = functools.partial(safl_round, cfg, lambda p, b: loss_fn(model, p, b),
+                           plan=make_packing_plan(cfg.sketch, params))
+    key = prng.key(1)
+
+    class Transient:
+        def spec(self, t, base_key, device):
+            codes = (OK, NAN, OK, OK, OK) if base_key == key and 2 <= t < 4 else (OK,) * 5
+            return _spec_from_codes(torch.tensor(codes, dtype=torch.int32,
+                                                 device=device), 1e3)
+
+    devices = []
+
+    def launch(p, s, *, key, start_round, on_chunk):
+        def watch(t, p2, s2, h):
+            devices.append((t, {v.device.type for v in p2.values()}))
+            on_chunk(t, p2, s2, h)
+        launches = cs.LAUNCHES.n
+        out = run_scan(fn, sampler, p, s, rounds=6, key=key, chunk_size=2,
+                       start_round=start_round, on_chunk=watch, faults=Transient())
+        assert cs.LAUNCHES.n - launches == 6 - start_round
+        return out
+
+    p, s, _, log = run_supervised(launch, params, init_safl(cfg, params), rounds=6,
+                                  key=key, config=SupervisorConfig(max_retries=2))
+    assert [(e["retry"], e["t_resume"]) for e in log] == [(1, 2)]
+    assert [t for t, _ in devices] == [2, 4, 4, 6]
+    assert all(d == {"cuda"} for _, d in devices)
+    assert all(v.is_cuda and bool(torch.isfinite(v).all()) for v in p.values())

@@ -50,6 +50,7 @@ from repro_torch.launch.driver import (COUNTER_KEYS, HISTORY_KEYS,
 from repro_torch.models.config import ModelConfig as TModel
 from repro_torch.models.model import init_params
 from repro_torch.models.model import loss_fn as t_loss
+from repro_torch.obs import PROBE_KEYS
 
 torch.set_num_threads(2)
 
@@ -157,7 +158,8 @@ def test_port_scan_equals_host_loop_bitwise():
     p2, s2, h2 = run_host_loop(fn, tsmp, fresh(), t_init_safl(tcfg, fresh()),
                                rounds=3, key=prng.key(4), bits_per_round=123)
     assert set(h1) == set(h2) == {"loss", "uplink_bits"}
-    assert set(HISTORY_KEYS) == {"loss", "uplink_bits"} | set(COUNTER_KEYS)
+    assert set(HISTORY_KEYS) == ({"loss", "uplink_bits"} | set(COUNTER_KEYS)
+                                 | set(PROBE_KEYS))
     for k in h1:
         np.testing.assert_array_equal(h1[k], h2[k])
     for k in p1:
