@@ -12,7 +12,8 @@ Phases (any failed check or exception exits nonzero):
    library call's time where one exists, and the least time the card could
    take (``bound_ms``); for the count-sketch route also its stages' times,
    its device launches per call, skewed and b >> n cases, and two calls
-   held bitwise equal at both main-path shapes; for the FWHT every (R, C)
+   held bitwise equal at every main-path shape (phase 11b's vit_base_86m
+   and llama3.2-1b uplinks included); for the FWHT every (R, C)
    group of an lm25m SRHT round (sk and desk) and edge shapes, each bit for
    bit, timed with the L2 cache flushed before each call, and the round's
    sum against its bound; then the Gaussian pair (B3 sk, B4 desk) at the
@@ -77,19 +78,36 @@ Phases (any failed check or exception exits nonzero):
    launchers ``train_lm`` (lm25m, 20 rounds, telemetry, faults, sentinel,
    supervised), ``sketch_size_sweep`` and ``heavy_tail``, each's wall
    time.
+11. the paper's Fig. 5 and the model zoo: (a) the forward-over-reverse
+   HVP of bert_100m SMOKE on the card against the CPU, then the intrinsic
+   dimension I = trace|H| / lambda_max of bert_100m at full width and
+   depth on one client batch of 16 x 128 tokens (20 Lanczos iterations x
+   2 probes, the float64 vectors on the card), with the ms per HVP, the
+   whole time and the peak; (b) three SAFL rounds each of vit_base_86m at
+   full width and depth and of llama3.2-1b at full width with 2 of its 16
+   blocks in bfloat16, through the count-sketch kernel (G = 5), with
+   phase 4's checks and breakdown; (c) one client step (loss and
+   gradient) of dbrx, falcon-mamba, qwen2-vl, whisper, qwen1.5, qwen2 and
+   h2o-danube at full width with one block, in bfloat16 and then in
+   float32 on the same weights (losses finite, gradient cosine at least
+   0.99; for dbrx the top-k choices and kept-mask entries that differ
+   between the two), and every architecture's SMOKE loss and gradients on the card
+   against the CPU within phase 3's tolerance (jamba and deepseek-v3
+   exceed one card at full width even at one block).
 
-Phases 4, 5, 6 and 8b end with a breakdown of one round's time by step,
+Phases 4, 5, 6, 8b and 11b end with a breakdown of one round's time by step,
 and check each round's uplink bits (per-client payload times the
 cohort).
 
 The launch counts of the kernels are set to 0 just before phases 4, 5, 6,
-8b, 9b and 10b (each run) and the Gaussian full-width run, and read just after
-each; the ``kernels`` line has one entry per kernel and path (the
-count-sketch's main-path entry, timed at the uplink's shape, counts
+8b, 9b, 10b and 11b (each run) and the Gaussian full-width run, and read
+just after each; the ``kernels`` line has one entry per kernel and path
+(the count-sketch's main-path entry, timed at the uplink's shape, counts
 phases 4 and 6 and FetchSGD's uplink in 8b; its FetchSGD re-sketch entry,
 timed at G = 1, counts the re-sketch's calls in 8b; its streamed-chunk
 entry, timed at G = 2, counts 9b's calls; 10b's are added to the main
-path's).
+path's; the entries at vit_base_86m's and llama3.2-1b's uplinks, timed at
+G = 5 in phase 2, count their models' rounds in 11b).
 The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": ...}``.  Needs one CUDA card; exits nonzero
@@ -118,7 +136,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import prng  # noqa: E402
 from repro_torch.checkpoint.io import (restore_checkpoint,  # noqa: E402
                                        save_checkpoint)
-from repro_torch.configs import bert_100m  # noqa: E402
+from repro_torch.configs import (ARCHS, bert_100m, get_config,  # noqa: E402
+                                 llama3_2_1b, vit_base_86m)
 from repro_torch.core import baselines as baselines_module  # noqa: E402
 from repro_torch.core import clipped as clipped_module  # noqa: E402
 from repro_torch.core import safl as safl_module  # noqa: E402
@@ -128,6 +147,8 @@ from repro_torch.core.baselines import (BaselineConfig,  # noqa: E402
                                         uplink_bits)
 from repro_torch.core.clipped import (ClippedSAFLConfig,  # noqa: E402
                                       clipped_safl_round)
+from repro_torch.core.intrinsic_dim import (intrinsic_dimension,  # noqa: E402
+                                            make_hvp)
 from repro_torch.core.packed import (derive_round_params,  # noqa: E402
                                      make_packing_plan)
 from repro_torch.core.safl import (SAFLConfig, fedopt_round,  # noqa: E402
@@ -159,6 +180,7 @@ from repro_torch.launch.driver import (COUNTER_KEYS,  # noqa: E402
 from repro_torch.launch.supervisor import (SupervisorConfig,  # noqa: E402
                                            format_recovery_log,
                                            run_supervised)
+from repro_torch.models import layers as layers_module  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.model import (init_params, loss_fn,  # noqa: E402
                                      param_shapes)
@@ -432,6 +454,34 @@ CS_EDGE_CASES = ((1, 100_000, 1, "zero"), (1, 100_000, 300, "zero"),
                  (7, cs.COARSE_MIN_N + 12_345, 30_000, "random"))
 
 
+def uplink_entry(name: str, what: str, x: torch.Tensor, h: torch.Tensor,
+                 b: int) -> dict:
+    """B1 at a round's uplink shape: checked against its plain version and
+    the ordered sum, twice bitwise equal, timed beside the plain version
+    and ``index_add_``; its ``kernels`` entry, launches still 0."""
+    g, n = x.shape
+    err = check_countsketch(x, h, b)
+    check_repeat(x, h, b, what)
+    ms = cuda_ms(lambda: cs.countsketch_clients_cuda(x, h, b))
+    stages = cs_stages(x, h, b)
+    plain_ms = cuda_ms(lambda: cs.countsketch_clients_plain(x, h, b))
+    zeros = torch.zeros((g, b), device=x.device)
+    lib_ms = cuda_ms(lambda: zeros.index_add_(1, h, x))
+    bms, by = bound_ms(x.numel() * 4 + h.numel() * h.element_size() + g * b * 4,
+                       x.numel())
+    width = cs.route(n, b)[0]
+    print(f"countsketch {what} G={g} n={n} b={b} (window {width}, "
+          f"{-(-b // width)} windows of at most {cs.MAX_WINDOWS}): stages (ms) "
+          f"{stages}")
+    print(f"countsketch {what} G={g} n={n} b={b}: ms {ms:.3f} (the whole route); "
+          f"plain_ms {plain_ms:.3f}; library_ms (index_add_) {lib_ms:.3f}; "
+          f"bound_ms {bms:.3f} ({by})")
+    return dict(name=name, route="cuda", source="src/repro_torch/csrc/countsketch.cu",
+                replaces="src/repro/kernels/countsketch.py:45", launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
 def phase_kernels(gen: torch.Generator) -> list[dict]:
     dev = "cuda"
     print("== phase 2: kernels against their plain versions ==")
@@ -446,32 +496,26 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
              else torch.randint(0, b, (n,), generator=gen, device=dev))
         check_countsketch(x, h, b)
 
+    # B1 at phase 11b's uplinks (vit_base_86m, and llama3.2-1b's two blocks:
+    # the most windows of any path), G = 5 with a real round's hash; each
+    # its own entry, its launches those of its model's rounds
+    g = G_CLIENTS
+    entries = []
+    for name, model in ZOO_ROUNDS:
+        plan = make_packing_plan(MAIN_SKETCH, param_shape_tree(model))
+        h = derive_round_params(plan, prng.fold_in(prng.key(0), 0), dev)["h"]
+        x = torch.randn((g, plan.d_total), generator=gen, device=dev) * 1e-3
+        entries.append(uplink_entry(f"countsketch_{name}", f"{name} uplink", x, h,
+                                    plan.b_total))
+        del x, h
+        torch.cuda.empty_cache()
+
     # B1 at the main path's shape, with a real round's hash
     plan = make_packing_plan(MAIN_SKETCH, param_shape_tree(bert_100m.CONFIG))
     rp = derive_round_params(plan, prng.fold_in(prng.key(0), 0), dev)
     h, b = rp["h"], plan.b_total
-    g = G_CLIENTS
     x = torch.randn((g, plan.d_total), generator=gen, device=dev) * 1e-3
-    err = check_countsketch(x, h, b)
-    check_repeat(x, h, b, "main path")
-    ms = cuda_ms(lambda: cs.countsketch_clients_cuda(x, h, b))
-    stages = cs_stages(x, h, b)
-    plain_ms = cuda_ms(lambda: cs.countsketch_clients_plain(x, h, b))
-    zeros = torch.zeros((g, b), device=dev)
-    lib_ms = cuda_ms(lambda: zeros.index_add_(1, h, x))
-    nb = x.numel() * 4 + h.numel() * h.element_size() + g * b * 4
-    bms, by = bound_ms(nb, x.numel())
-    print(f"countsketch main path G={g} n={plan.d_total} b={b} (window "
-          f"{cs.route(plan.d_total, b)[0]}): stages (ms) {stages}")
-    print(f"countsketch main path G={g} n={plan.d_total} b={b}: "
-          f"ms {ms:.3f} (the whole route); plain_ms {plain_ms:.3f}; library_ms "
-          f"(index_add_) {lib_ms:.3f}; bound_ms {bms:.3f} ({by})")
-    entries = [dict(name="countsketch_clients", route="cuda",
-                    source="src/repro_torch/csrc/countsketch.cu",
-                    replaces="src/repro/kernels/countsketch.py:45",
-                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=lib_ms)]
-    del zeros
+    entries.insert(0, uplink_entry("countsketch_clients", "main path", x, h, b))
 
     # B1 at FetchSGD's re-sketch of its top-k update (phase 8): G = 1 over
     # all of d_total, the same plan and hash as the uplink; its entry's
@@ -520,6 +564,7 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
                         launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=lib_ms))
     del h, rp, zeros, x1, x2
+    torch.cuda.empty_cache()
 
     # the same uplink at the smaller ratios users also run (more indices
     # per slot: ~100 and ~200); checked and timed, not on the main path
@@ -979,8 +1024,10 @@ def phase_card_vs_cpu() -> None:
           f"SMOKE sacfl: no client clipped at tau {SACFL_TAUS[-1]}")
 
 
-def full_data() -> LMDataConfig:
-    return LMDataConfig(vocab_size=4096, seq_len=128, num_clients=G_CLIENTS,
+def full_data(vocab: int = 4096) -> LMDataConfig:
+    """The full-width phases' bigram data: 4,096 tokens, or a smaller
+    model's whole vocabulary."""
+    return LMDataConfig(vocab_size=vocab, seq_len=128, num_clients=G_CLIENTS,
                         heterogeneity=0.3, alpha=0.02)
 
 
@@ -993,7 +1040,7 @@ def phase_full(name: str, model: ModelConfig, sketch: SketchConfig,
     every round, and each round's uplink bits must be the per-client
     payload times the cohort.  Then one round's time by step.  Returns the
     counts after the run and its peak device memory in GiB."""
-    data = full_data()
+    data = full_data(min(model.vocab_size, 4096))
     policy = round_kw.get("policy")
     cohort = policy.cohort_size if policy else G_CLIENTS
     want_bits = float(np.float32(
@@ -1945,6 +1992,255 @@ def phase_launchers() -> None:
     print(f"heavy_tail: {sec:.1f} s wall")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the paper's Fig. 5 and the model zoo
+# ---------------------------------------------------------------------------
+
+FIG5_ITERS, FIG5_PROBES = 20, 2     # the bench's full setting (benchmarks/run.py)
+
+
+def phase_intrinsic_dim() -> None:
+    """Phase 11a: the HVP of bert_100m SMOKE on the card against the CPU,
+    then the Fig. 5 estimate at bert_100m's full width and depth on one
+    client batch of 16 x 128 tokens (the Lanczos vectors in HBM)."""
+    print("== phase 11a: Fig. 5 intrinsic dimension ==")
+    smoke = bert_100m.SMOKE
+    sbatch = BigramLMData(smoke_data()).client_batch(0, 4, seed=0, device="cpu")
+    hv, v = {}, None
+    for dev in ("cpu", "cuda"):
+        params = init_params(smoke, torch.Generator().manual_seed(0), device=dev)
+        mv, d = make_hvp(lambda p, b: loss_fn(smoke, p, b), params,
+                         {k: t.to(dev) for k, t in sbatch.items()})
+        if v is None:
+            v = prng.normal(prng.key(1), (d,), "cpu")
+        hv[dev] = mv(v.to(dev)).cpu()
+    outside = int((~torch.isclose(hv["cuda"], hv["cpu"], rtol=TRAJ_RTOL,
+                                  atol=TRAJ_ATOL)).sum())
+    print(f"fig5 SMOKE HVP (d = {d:,}, forward-over-reverse): max abs diff card "
+          f"vs cpu {float((hv['cuda'] - hv['cpu']).abs().max()):.3e} (largest "
+          f"entry {float(hv['cpu'].abs().max()):.3e}); coordinates outside atol "
+          f"{TRAJ_ATOL}, rtol {TRAJ_RTOL}: {outside}")
+    check(outside == 0, "fig5: the SMOKE HVP differs between card and CPU")
+
+    model = bert_100m.CONFIG
+    params = init_params(model, torch.Generator().manual_seed(0), device="cuda")
+    batch = BigramLMData(full_data(min(model.vocab_size, 4096))).client_batch(
+        0, 16, seed=0, device="cuda")
+    loss = lambda p, b: loss_fn(model, p, b)
+    mv, d = make_hvp(loss, params, batch)
+    v = prng.normal(prng.key(2), (d,), "cuda")
+    mv(v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        mv(v)
+    torch.cuda.synchronize()
+    hvp_ms = (time.perf_counter() - t0) / 3 * 1e3
+    del mv, v
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = intrinsic_dimension(loss, params, batch, FIG5_ITERS, FIG5_PROBES,
+                              key=prng.key(0))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = peak_gib()
+    i_dim, lam, tr = out["intrinsic_dim"], out["lambda_max"], out["trace_abs"]
+    print(f"fig5 bert_100m full width: d = {d:,}, I = {i_dim:.2f}, lambda_max = "
+          f"{lam:.5g}, trace|H| = {tr:.5g}, I/d = {i_dim / d:.3e}; HVP "
+          f"{hvp_ms:.1f} ms (forward-over-reverse, 16 x 128 tokens); the "
+          f"estimate ({FIG5_ITERS} iterations x {FIG5_PROBES} probes) {sec:.1f} s; "
+          f"peak device memory {peak:.2f} GiB (Lanczos vectors "
+          f"{FIG5_ITERS * d * 8 / 1e9:.1f} GB)")
+    check(all(math.isfinite(x) for x in (i_dim, lam, tr)) and lam > 0
+          and 0 < i_dim < d, f"fig5: I {i_dim}, lambda_max {lam}, trace {tr}")
+    check(out["nodes"].size == FIG5_ITERS * FIG5_PROBES,
+          f"fig5: {out['nodes'].size} Ritz values (a Lanczos run stopped early)")
+
+
+# llama3.2-1b at full width with 2 of its 16 blocks: its 1.236 B parameters
+# at full depth need ~9x phase 4's peak, more than one card holds
+LLAMA_2_BLOCKS = dataclasses.replace(llama3_2_1b.CONFIG, num_layers=2)
+# phase 11b's models; B1 has an entry at each one's uplink (phase 2)
+ZOO_ROUNDS = (("vit_base_86m", vit_base_86m.CONFIG),
+              ("llama3_2_1b", LLAMA_2_BLOCKS))
+
+
+def phase_zoo_rounds() -> dict[str, int]:
+    """Phase 11b: three SAFL rounds each of vit_base_86m at full width and
+    depth and of llama3.2-1b at full width, 2 blocks, in bfloat16, through
+    the count-sketch kernel (G = 5).  Returns B1's calls by entry name."""
+    print("== phase 11b: SAFL rounds of the zoo at full width, count-sketch ==")
+    counters = {"countsketch": cs.LAUNCHES,
+                "countsketch_device": cs.DEVICE_LAUNCHES}
+    calls = {}
+    for name, model in ZOO_ROUNDS:
+        what = name if model.num_layers == get_config(name).num_layers else (
+            f"{name} ({model.num_layers} of {get_config(name).num_layers} "
+            f"blocks, {str(model.dtype).removeprefix('torch.')})")
+        n, _ = phase_full(what, model, MAIN_SKETCH, counters)
+        print_cs_launches(what, n)
+        calls[f"countsketch_{name}"] = n["countsketch"]
+        torch.cuda.empty_cache()
+    return calls
+
+
+# (arch, sequences, text tokens a sequence) of phase 11c's one-block steps:
+# whisper's decoder takes its 448 positions after 1,500 audio frames,
+# qwen2-vl 256 text tokens after its 256 patches, h2o-danube a sequence
+# longer than its 4,096-token window
+FAMILY_STEPS = (("dbrx_132b", 2, 512), ("falcon_mamba_7b", 2, 512),
+                ("qwen2_vl_7b", 2, 256), ("whisper_large_v3", 2, 448),
+                ("qwen1_5_4b", 2, 512), ("qwen2_7b", 2, 512),
+                ("h2o_danube_1_8b", 1, 4608))
+# a bfloat16 step against float32 on the same weights: each matmul's output
+# rounds to 8 significant bits (2^-9 relative), so the gradient, over every
+# parameter, is held to a cosine of 0.99.  The losses are printed, not
+# held: at init with one block any finite forward gives ~ln(vocab)
+ZOO_MIN_COS = 0.99
+
+
+class RoutingRecorder:
+    """Records the top-k experts and the kept mask of every MoE call inside
+    the ``with`` (``layers.moe_route`` and ``layers.moe_slots`` wrapped)."""
+
+    def __enter__(self):
+        self.topi, self.keep = [], []
+        self.orig = layers_module.moe_route, layers_module.moe_slots
+        route, slots = self.orig
+
+        def recording_route(*args, **kwargs):
+            out = route(*args, **kwargs)
+            self.topi.append(out[1].detach().clone())
+            return out
+
+        def recording_slots(*args, **kwargs):
+            out = slots(*args, **kwargs)
+            self.keep.append(out[1].detach().clone())
+            return out
+        layers_module.moe_route, layers_module.moe_slots = recording_route, recording_slots
+        return self
+
+    def __exit__(self, *exc):
+        layers_module.moe_route, layers_module.moe_slots = self.orig
+
+    def differences(self, other: "RoutingRecorder") -> str:
+        """How many top-k choices, tokens' expert sets and kept-mask
+        entries differ from ``other``'s run of the same step."""
+        a, b = torch.cat(self.topi), torch.cat(other.topi)
+        ka, kb = torch.cat(self.keep), torch.cat(other.keep)
+        choices = int((a != b).sum())
+        sets = int((a.sort(dim=-1).values != b.sort(dim=-1).values).any(dim=-1).sum())
+        kept = int((ka != kb).sum())
+        return (f"routing against float32: {choices} of {a.numel():,} top-k choices "
+                f"differ, {sets} of {a.shape[0]:,} tokens' expert sets, {kept} of "
+                f"{ka.numel():,} kept-mask entries ({int(ka.sum()):,} and "
+                f"{int(kb.sum()):,} kept)")
+
+
+def one_block(model: ModelConfig) -> ModelConfig:
+    """The config cut to one scan block (and one encoder block)."""
+    return dataclasses.replace(model, num_layers=len(model.scan_blocks()[1]),
+                               encoder_layers=min(model.encoder_layers, 1))
+
+
+def zoo_batch(model: ModelConfig, B: int, S: int, device, dtype) -> dict:
+    gen = torch.Generator(device=device).manual_seed(0)
+    batch = {"tokens": torch.randint(0, model.vocab_size, (B, S), generator=gen,
+                                     device=device)}
+    extra = {"vision": ("patch_embeds", model.num_frontend_tokens),
+             "audio": ("audio_embeds", model.encoder_seq)}.get(model.frontend)
+    if extra:
+        batch[extra[0]] = (torch.randn((B, extra[1], model.d_model), generator=gen,
+                                       device=device) * 0.02).to(dtype)
+    return batch
+
+
+def grad_step(model: ModelConfig, params: dict, batch: dict):
+    """Loss and gradient of one local step: (loss, grads, ms)."""
+    leaves = [p.requires_grad_(True) for p in params.values()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_fn(model, params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return float(loss.detach()), dict(zip(params, grads)), ms
+
+
+def phase_zoo_steps() -> None:
+    """Phase 11c: each family's client step (loss and gradient) at full
+    width, one block, in its dtype and then in float32 on the same weights;
+    then every arch's SMOKE loss and gradients, card against CPU."""
+    print("== phase 11c: the zoo's client step at full width, one block ==")
+    for arch, B, S in FAMILY_STEPS:
+        model = one_block(get_config(arch))
+        gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(model, gen(), device="cuda")
+        d = sum(p.numel() for p in params.values())
+        batch = zoo_batch(model, B, S, "cuda", model.dtype)
+        grad_step(model, params, batch)                      # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        with RoutingRecorder() as r16:
+            loss16, g16, ms16 = grad_step(model, params, batch)
+        peak16 = peak_gib()
+        del params
+        torch.cuda.empty_cache()
+        params = init_params(model, gen(), device="cuda")
+        params = {k: params[k].float() for k in list(params)}
+        model32 = dataclasses.replace(model, dtype=torch.float32)
+        batch32 = {k: v.float() if v.is_floating_point() else v
+                   for k, v in batch.items()}
+        torch.cuda.reset_peak_memory_stats()
+        with RoutingRecorder() as r32:
+            loss32, g32, ms32 = grad_step(model32, params, batch32)
+        peak32 = peak_gib()
+        dot = n16 = n32 = 0.0
+        worst = (2.0, "")
+        for k, a in g32.items():
+            b = g16[k]
+            if a is None or b is None:
+                check(a is None and b is None, f"{arch}: {k} unused in one dtype")
+                continue
+            a, b = a.double(), b.double()
+            ab, aa, bb = float((a * b).sum()), float((a * a).sum()), float((b * b).sum())
+            dot, n32, n16 = dot + ab, n32 + aa, n16 + bb
+            worst = min(worst, (ab / math.sqrt(aa * bb + 1e-300), k))
+        cos = dot / math.sqrt(n16 * n32)
+        print(f"{arch} (1 block, d = {d:,}, {B} x {S} tokens): {model.dtype} step "
+              f"{ms16:.1f} ms, peak {peak16:.2f} GiB, loss {loss16:.5f}; float32 step "
+              f"{ms32:.1f} ms, peak {peak32:.2f} GiB, loss {loss32:.5f}; gradient "
+              f"cosine {cos:.5f} (lowest leaf {worst[1]} {worst[0]:.4f})")
+        if r16.topi:
+            print(f"{arch}: {model.dtype} {r16.differences(r32)}")
+        check(math.isfinite(loss16) and math.isfinite(loss32),
+              f"{arch}: loss {loss16} in {model.dtype}, {loss32} in float32")
+        check(cos >= ZOO_MIN_COS, f"{arch}: gradient cosine {cos} across dtypes")
+        del params, g16, g32, batch, batch32
+        torch.cuda.empty_cache()
+    print("jamba_1_5_large_398b (44.2 B parameters a block) and deepseek_v3_671b "
+          "(11.5 B a block, 4.5 B outside the blocks) exceed one card at full "
+          "width: SMOKE size only (full width waits for the mesh, ROADMAP A-11)")
+    for arch in ARCHS:
+        model = get_config(arch, smoke=True)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = init_params(model, torch.Generator().manual_seed(0), device=dev)
+            batch = zoo_batch(model, 2, 20, "cpu", model.dtype)
+            loss, grads, _ = grad_step(model, params,
+                                       {k: v.to(dev) for k, v in batch.items()})
+            out[dev] = loss, {k: g.cpu() for k, g in grads.items() if g is not None}
+        (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+        worst = max(float((gg[k] - g).abs().max()) for k, g in gc.items())
+        outside = sum(int((~torch.isclose(gg[k], g, rtol=TRAJ_RTOL,
+                                          atol=TRAJ_ATOL)).sum())
+                      for k, g in gc.items())
+        print(f"{arch} SMOKE: loss card {lg:.6f} cpu {lc:.6f}; gradients max abs "
+              f"diff {worst:.3e}, outside atol {TRAJ_ATOL}, rtol {TRAJ_RTOL}: {outside}")
+        check(gg.keys() == gc.keys() and np.allclose(lg, lc, rtol=1e-4, atol=1e-4)
+              and outside == 0, f"{arch} SMOKE: card and CPU differ")
+
+
 def print_cs_launches(name: str, n: dict[str, int]) -> None:
     print(f"{name}: countsketch route called {n['countsketch']} times, "
           f"{n['countsketch_device']} device launches (kernels and memsets), "
@@ -2024,6 +2320,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_launchers()
     print(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    phase_intrinsic_dim()
+    torch.cuda.empty_cache()
+    for name, calls in phase_zoo_rounds().items():
+        by_name[name]["launches"] = calls
+    phase_zoo_steps()
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")

@@ -24,17 +24,43 @@ import numpy as np
 import torch
 
 
+def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor.  numpy has no bfloat16 of its own: the
+    reference's bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays,
+    which torch cannot read, so their bits cross as int16."""
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; a bfloat16 tensor's bits as
+    numpy's bfloat16, which a library (ml_dtypes, which jax imports) must
+    have registered."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError as e:
+        raise TypeError("a bfloat16 tensor needs numpy's bfloat16: import "
+                        "ml_dtypes (jax imports it) first") from e
+    return t.view(torch.int16).numpy().view(bf16)
+
+
 def params_from_numpy(flat: Mapping[str, Any], device="cuda") -> dict:
-    """numpy leaves (nested dicts allowed) -> tensors on ``device``."""
+    """numpy leaves (nested dicts allowed) -> tensors on ``device``,
+    bfloat16 leaves bit for bit."""
     return {k: params_from_numpy(v, device) if isinstance(v, Mapping)
-            else torch.as_tensor(np.array(v), device=device)
-            for k, v in flat.items()}
+            else _tensor(np.array(v), device) for k, v in flat.items()}
 
 
 def params_to_numpy(tree: Mapping[str, Any]) -> dict:
-    """Tensors (nested dicts allowed) -> numpy arrays on the host."""
-    return {k: params_to_numpy(v) if isinstance(v, Mapping)
-            else v.detach().cpu().numpy() for k, v in tree.items()}
+    """Tensors (nested dicts allowed) -> numpy arrays on the host,
+    bfloat16 leaves bit for bit as numpy's bfloat16 (see ``_array``)."""
+    return {k: params_to_numpy(v) if isinstance(v, Mapping) else _array(v)
+            for k, v in tree.items()}
 
 
 # dtypes ``.npz`` stores as they are; others (bfloat16 and friends) are

@@ -2,7 +2,8 @@
 
 The same fields as the reference, with torch dtypes, so a config file of
 the reference copies over unchanged apart from its dtype.  The port's
-model runs ``arch_type="dense"`` only (ROADMAP A18 holds the rest)."""
+model trains every family; its cached decode path waits for ROADMAP
+A-10 step 3."""
 
 from __future__ import annotations
 
@@ -91,6 +92,18 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank or -(-self.d_model // 16)
+
+    @property
+    def moe_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
     def layer_kinds(self) -> list[tuple[str, str]]:
         """Static per-depth (mixer, mlp) descriptors.
 
@@ -127,3 +140,15 @@ class ModelConfig:
             if n % plen == 0 and kinds == kinds[:plen] * (n // plen):
                 return n // plen, kinds[:plen]
         return 1, kinds
+
+    def uses_swa(self, l: int) -> bool:
+        return self.sliding_window > 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count (for 6ND model-flops accounting)."""
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self, active_only=True)

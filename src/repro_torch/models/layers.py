@@ -1,16 +1,20 @@
-"""Model layers of the dense transformer, in PyTorch.
+"""Model layers of every family, in PyTorch (the training path).
 
-Counterpart of ``repro/models/layers.py`` for ``arch_type="dense"``:
-norms, rotary and sinusoidal positions, blockwise exact GQA attention
-(causal, optional sliding window) and the MLPs.  Arithmetic follows the
-reference: float32 norms with ``rsqrt(var + eps)`` of the biased
-variance, masked scores set to -1e30 before the softmax, tanh-approximate
-GELU (``jax.nn.gelu``'s default).
+Counterpart of ``repro/models/layers.py``'s full-sequence layers: norms,
+rotary (and the VLM's multimodal M-RoPE) and sinusoidal positions,
+blockwise exact GQA attention (causal, optional sliding window, or
+cross-attention to an encoder), DeepSeek's MLA in its unabsorbed form,
+the MLPs, token-choice top-k MoE with capacity and scatter dispatch, and
+the Mamba-1 selective SSM.  Arithmetic follows the reference: float32
+norms with ``rsqrt(var + eps)`` of the biased variance, masked scores set
+to -1e30 before the softmax, tanh-approximate GELU (``jax.nn.gelu``'s
+default), a float32 router and SSM state.  The reference's cached decode
+layers wait for ROADMAP A-10 step 3.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -19,6 +23,8 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 
 Q_CHUNK = 512          # query chunk for blockwise attention
+MAMBA_CHUNK = 256      # seq chunk for the selective scan
+MOE_CHUNK = 4096       # token chunk for MoE dispatch
 Params = Mapping[str, torch.Tensor]
 
 
@@ -48,7 +54,7 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# positions: RoPE, sinusoidal
+# positions: RoPE, M-RoPE, sinusoidal
 # ---------------------------------------------------------------------------
 
 def _inv_freq(base: float, half: int, device) -> torch.Tensor:
@@ -57,12 +63,22 @@ def _inv_freq(base: float, half: int, device) -> torch.Tensor:
 
 
 def rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor, rot_dim: int):
-    """cos/sin tables for positions (B, S): each (B, S, rot_dim // 2)."""
-    if cfg.pos_kind != "rope":
-        raise NotImplementedError(
-            f"pos_kind={cfg.pos_kind!r} is not ported yet (ROADMAP A18)")
-    inv = _inv_freq(cfg.rope_theta, rot_dim // 2, positions.device)
-    ang = positions[..., None].to(torch.float32) * inv
+    """cos/sin tables, each (B, S, rot_dim // 2).  positions: (B, S) for
+    rope; (3, B, S) for mrope, whose (t, h, w) rows rotate the
+    ``mrope_sections`` of the frequencies in turn."""
+    half = rot_dim // 2
+    inv = _inv_freq(cfg.rope_theta, half, positions.device)
+    if cfg.pos_kind == "mrope":
+        secs = cfg.mrope_sections
+        assert sum(secs) == half, (secs, half)
+        parts, off = [], 0
+        for i, s in enumerate(secs):
+            parts.append(positions[i][..., None].to(torch.float32)
+                         * inv[off:off + s])
+            off += s
+        ang = torch.cat(parts, dim=-1)
+    else:
+        ang = positions[..., None].to(torch.float32) * inv
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -82,7 +98,7 @@ def sinusoidal_embed(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA + optional sliding window) -- full-sequence path
+# attention (GQA + optional sliding window / cross) -- full-sequence path
 # ---------------------------------------------------------------------------
 
 def _attend_chunked(q, k, v, *, causal: bool, window: int, q_offset: int,
@@ -133,29 +149,63 @@ def _attend_chunked(q, k, v, *, causal: bool, window: int, q_offset: int,
 
 def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True,
-              window: int = 0) -> torch.Tensor:
-    """Full-sequence GQA self-attention."""
+              window: int = 0,
+              enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence GQA attention; with ``enc_out``, cross-attention: keys
+    and values from the encoder's output, no rotary and no causal mask."""
     B, S, D = x.shape
     H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if cfg.attn_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, Hk, hd)
-    v = v.reshape(B, S, Hk, hd)
-    if cfg.pos_kind == "rope":
+    src = x if enc_out is None else enc_out
+    k = src @ p["wk"]
+    v = src @ p["wv"]
+    if cfg.attn_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    T = src.shape[1]
+    k = k.reshape(B, T, Hk, hd)
+    v = v.reshape(B, T, Hk, hd)
+    if cfg.pos_kind in ("rope", "mrope") and enc_out is None:
         cos, sin = rope_cos_sin(cfg, positions, hd)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    out = _attend_chunked(q, k, v, causal=causal, window=window, q_offset=0,
-                          num_kv=Hk)
+    out = _attend_chunked(q, k, v, causal=causal and enc_out is None,
+                          window=window, q_offset=0, num_kv=Hk)
     return out.reshape(B, S, H * hd) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
-# MLPs
+# MLA (DeepSeek-V3 Multi-head Latent Attention)
+# ---------------------------------------------------------------------------
+
+def mla_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence MLA (training/prefill, unabsorbed form): queries
+    through the q LoRA, keys and values up-projected from the kv latent,
+    one rotary key part shared by every head."""
+    B, S, D = x.shape
+    H = cfg.num_heads
+    nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = ((x @ p["w_dq"]) @ p["w_uq"]).reshape(B, S, H, nope + rdim)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    ckv = x @ p["w_dkv"]                                     # (B,S,kvr)
+    k_pe = (x @ p["w_kr"]).reshape(B, S, 1, rdim)
+    k_nope = (ckv @ p["w_uk"]).reshape(B, S, H, nope)
+    v = (ckv @ p["w_uv"]).reshape(B, S, H, vdim)
+    cos, sin = rope_cos_sin(cfg, positions, rdim)
+    q_pe = apply_rope(q_pe, cos, sin)
+    k_pe = apply_rope(k_pe, cos, sin)
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    k_full = torch.cat([k_nope, k_pe.expand(B, S, H, rdim)], dim=-1)
+    out = _attend_chunked(q_full, k_full, v, causal=True, window=0,
+                          q_offset=0, num_kv=H)
+    return out.reshape(B, S, H * vdim) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLPs and MoE
 # ---------------------------------------------------------------------------
 
 def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -167,3 +217,116 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
             h = h + p["bi"]
         return F.gelu(h, approximate="tanh") @ p["wo"]
     return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+
+
+def _expert_ffn(p: Params, xe: torch.Tensor) -> torch.Tensor:
+    """xe: (E, C, D) -> (E, C, D) through per-expert SwiGLU."""
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["wg"]))
+    h = h * torch.einsum("ecd,edf->ecf", xe, p["wi"])
+    return torch.einsum("ecf,efd->ecd", h, p["wo"])
+
+
+def moe_route(cfg: ModelConfig, p: Params, xf: torch.Tensor):
+    """The float32 router of (T, D) tokens: (renormalised top-k weights
+    (T, k), top-k experts (T, k), Switch-style load-balance aux loss)."""
+    E, k = cfg.num_experts, cfg.moe_top_k
+    probs = torch.softmax((xf @ p["router"]).to(torch.float32), dim=-1)
+    topw, topi = torch.topk(probs, k, dim=-1)
+    topw = topw / (torch.sum(topw, dim=-1, keepdim=True) + 1e-9)
+    me = torch.mean(probs, dim=0)
+    ce = torch.mean(F.one_hot(topi[:, 0], E).to(torch.float32), dim=0)
+    aux = cfg.router_aux_weight * E * torch.sum(me * ce)
+    return topw, topi, aux
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> tuple[int, int]:
+    """(token chunk, slots per expert in a chunk)."""
+    tc = min(MOE_CHUNK, tokens)
+    return tc, max(8, int(tc * cfg.moe_top_k / cfg.num_experts
+                          * cfg.capacity_factor))
+
+
+def moe_slots(cfg: ModelConfig, ic: torch.Tensor, cap: int):
+    """Dispatch of one chunk's (tc, k) choices, in (token, choice) order:
+    each choice's row in the (E * cap + 1, D) buffer, its expert's slot
+    number from the one-hot cumsum, and whether it fits; choices past an
+    expert's capacity go to the last (dump) row."""
+    E = cfg.num_experts
+    fi = ic.reshape(-1)
+    pos_mat = torch.cumsum(F.one_hot(fi, E).to(torch.int32), dim=0) - 1
+    posn = torch.gather(pos_mat, 1, fi[:, None])[:, 0]
+    keep = posn < cap
+    return torch.where(keep, fi * cap + posn, E * cap), keep
+
+
+def moe(cfg: ModelConfig, p: Params, x: torch.Tensor
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with capacity and scatter dispatch, in token
+    chunks of ``MOE_CHUNK``.  Returns (out (B, S, D), aux_loss).  A kept
+    choice is written once into its own buffer row, so the scatter-add has
+    no order to get wrong."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.moe_top_k
+    T = B * S
+    xf = x.reshape(T, D)
+    topw, topi, aux = moe_route(cfg, p, xf)
+    tc, cap = moe_capacity(cfg, T)
+    t_pad = -(-T // tc) * tc
+    xp, wp, ip = (F.pad(t, (0, 0, 0, t_pad - T)) for t in (xf, topw, topi))
+    outs = []
+    for c0 in range(0, t_pad, tc):
+        xc, wc, ic = xp[c0:c0 + tc], wp[c0:c0 + tc], ip[c0:c0 + tc]
+        slot, keep = moe_slots(cfg, ic, cap)
+        xrep = torch.repeat_interleave(xc, k, dim=0)             # (tc*k, D)
+        buf = torch.zeros((E * cap + 1, D), dtype=xc.dtype,
+                          device=xc.device).index_add(0, slot, xrep)
+        ye = _expert_ffn(p, buf[:E * cap].reshape(E, cap, D))
+        yrep = ye.reshape(E * cap, D)[torch.clamp(slot, 0, E * cap - 1)]
+        yrep = torch.where(keep[:, None], yrep, 0.0)
+        yrep = yrep * wc.reshape(-1)[:, None].to(xc.dtype)
+        outs.append(yrep.reshape(tc, k, D).sum(dim=1))
+    out = torch.cat(outs)[:T]
+    if cfg.num_shared_experts:
+        out = out + (F.silu(xf @ p["shared/wg"]) * (xf @ p["shared/wi"])) \
+            @ p["shared/wo"]
+    return out.reshape(B, S, D), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective SSM
+# ---------------------------------------------------------------------------
+
+def mamba(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence Mamba-1 block.  The state h_t = a_t * h_{t-1} + b_t
+    runs in float32 as a sequential recurrence in chunks of
+    ``MAMBA_CHUNK`` (h carried across chunks); the reference scans each
+    chunk associatively, which sums in another order."""
+    B, S, D = x.shape
+    di, ds, dtr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    kw = cfg.ssm_conv
+    u = x @ p["wx"]                                          # (B,S,di)
+    z = x @ p["wz"]
+    upad = F.pad(u, (0, 0, kw - 1, 0))                       # causal conv
+    conv = 0
+    for i in range(kw):
+        conv = conv + upad[:, i:i + S] * p["conv_w"][i]
+    u = F.silu(conv + p["conv_b"])
+    xdb = u @ p["x_proj"]                                    # (B,S,dtr+2ds)
+    dt = F.softplus(xdb[..., :dtr] @ p["dt_proj"] + p["dt_bias"])
+    Bs = xdb[..., dtr:dtr + ds]
+    Cs = xdb[..., dtr + ds:].to(torch.float32)
+    A = -torch.exp(p["a_log"].to(torch.float32))             # (di,ds)
+    a = torch.exp(dt[..., None].to(torch.float32) * A)       # (B,S,di,ds)
+    b = (dt[..., None] * Bs[:, :, None, :] * u[..., None]).to(torch.float32)
+    h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, S, MAMBA_CHUNK):
+        hs = []
+        for t in range(c0, min(c0 + MAMBA_CHUNK, S)):
+            h = a[:, t] * h + b[:, t]
+            hs.append(h)
+        ys.append(torch.einsum("blds,bls->bld", torch.stack(hs, dim=1),
+                               Cs[:, c0:c0 + len(hs)]))
+    y = (torch.cat(ys, dim=1) + u.to(torch.float32) * p["d_skip"]).to(x.dtype)
+    y = y * F.silu(z)
+    return y @ p["out_proj"]

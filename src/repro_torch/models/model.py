@@ -1,42 +1,110 @@
-"""The dense transformer LM: parameter shapes, init, forward and loss.
+"""The model of every assigned family: parameter shapes, init, forward and
+loss (the training path).
 
-Counterpart of ``repro/models/model.py`` for ``arch_type="dense"``.
-Parameters are a flat ``dict[str, Tensor]`` keyed by the reference's
-"/"-joined leaf paths (``embed``, ``layers/l0/attn/wq``, ...), with the
-layers stacked over depth as ``(L, ...)`` tensors exactly as the
-reference's ``param_shapes`` makes them: the sketch operators are per
-leaf, and a leaf is the whole stack.  The forward pass loops over the
-stack in Python where the reference scans it.
+Counterpart of ``repro/models/model.py``.  Parameters are a flat
+``dict[str, Tensor]`` keyed by the reference's "/"-joined leaf paths
+(``embed``, ``layers/l0/attn/wq``, ``layers/l1/moe/shared/wi``, ...), in
+jax's flatten order, with each stack of blocks over depth as ``(L, ...)``
+tensors exactly as the reference's ``param_shapes`` makes them: the
+sketch operators are per leaf, and a leaf is the whole stack.  The forward
+pass loops over a stack in Python where the reference scans it.  The
+reference's cached decode (``init_cache``, ``encode_for_decode``,
+``decode_step``) waits for ROADMAP A-10 step 3.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 LOSS_CHUNK = 1024  # sequence chunk for the vocab-softmax loss
 Params = Mapping[str, torch.Tensor]
+DENSE = [("attn", "dense")]   # the pattern of leading dense and encoder blocks
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if (cfg.arch_type != "dense" or cfg.mla or cfg.num_experts
-            or cfg.encoder_layers or cfg.cross_attention or cfg.mtp
-            or cfg.first_dense_layers or cfg.frontend != "none"
-            or cfg.pos_kind == "mrope"):
-        raise NotImplementedError(
-            f"model {cfg.name!r}: only the dense decoder-only family is "
-            "ported yet (ROADMAP A18)")
-
+# ---------------------------------------------------------------------------
+# parameter shapes / init
+# ---------------------------------------------------------------------------
 
 def _norm_shape(cfg: ModelConfig, d: int) -> dict:
     if cfg.norm_kind == "ln":
         return {"scale": (d,), "bias": (d,)}
     return {"scale": (d,)}
+
+
+def _attn_shapes(cfg: ModelConfig, cross: bool = False) -> dict:
+    D, H, Hk, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    if cfg.mla and not cross:
+        return {
+            "ln": _norm_shape(cfg, D),
+            "w_dq": (D, cfg.q_lora_rank),
+            "w_uq": (cfg.q_lora_rank, H * (cfg.qk_nope_dim + cfg.qk_rope_dim)),
+            "w_dkv": (D, cfg.kv_lora_rank),
+            "w_kr": (D, cfg.qk_rope_dim),
+            "w_uk": (cfg.kv_lora_rank, H * cfg.qk_nope_dim),
+            "w_uv": (cfg.kv_lora_rank, H * cfg.v_head_dim),
+            "wo": (H * cfg.v_head_dim, D),
+        }
+    s = {"ln": _norm_shape(cfg, D),
+         "wq": (D, H * hd), "wk": (D, Hk * hd), "wv": (D, Hk * hd),
+         "wo": (H * hd, D)}
+    if cfg.attn_bias and not cross:
+        s.update({"bq": (H * hd,), "bk": (Hk * hd,), "bv": (Hk * hd,)})
+    return s
+
+
+def _mlp_shapes(cfg: ModelConfig) -> dict:
+    D, F_ = cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind == "gelu":
+        return {"ln": _norm_shape(cfg, D), "wi": (D, F_), "bi": (F_,),
+                "wo": (F_, D), "bo": (D,)}
+    return {"ln": _norm_shape(cfg, D), "wi": (D, F_), "wg": (D, F_),
+            "wo": (F_, D)}
+
+
+def _moe_shapes(cfg: ModelConfig) -> dict:
+    D, F_, E = cfg.d_model, cfg.moe_ff, cfg.num_experts
+    s = {"ln": _norm_shape(cfg, D), "router": (D, E),
+         "wi": (E, D, F_), "wg": (E, D, F_), "wo": (E, F_, D)}
+    if cfg.num_shared_experts:
+        Fs = F_ * cfg.num_shared_experts
+        s["shared"] = {"wi": (D, Fs), "wg": (D, Fs), "wo": (Fs, D)}
+    return s
+
+
+def _mamba_shapes(cfg: ModelConfig) -> dict:
+    D, di, ds, dtr, kw = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                          cfg.dt_rank, cfg.ssm_conv)
+    return {"ln": _norm_shape(cfg, D),
+            "wx": (D, di), "wz": (D, di),
+            "conv_w": (kw, di), "conv_b": (di,),
+            "x_proj": (di, dtr + 2 * ds), "dt_proj": (dtr, di),
+            "dt_bias": (di,), "a_log": (di, ds), "d_skip": (di,),
+            "out_proj": (di, D)}
+
+
+def _block_shapes(cfg: ModelConfig, pattern, cross: bool = False) -> dict:
+    blk = {}
+    for i, (mixer, mlp_kind) in enumerate(pattern):
+        sub = {}
+        if mixer == "attn":
+            sub["attn"] = _attn_shapes(cfg)
+            if cross:
+                sub["xattn"] = _attn_shapes(cfg, cross=True)
+        else:
+            sub["mamba"] = _mamba_shapes(cfg)
+        if mlp_kind == "dense":
+            sub["mlp"] = _mlp_shapes(cfg)
+        elif mlp_kind == "moe":
+            sub["moe"] = _moe_shapes(cfg)
+        blk[f"l{i}"] = sub
+    return blk
 
 
 def _flatten(prefix: str, tree: dict, out: dict) -> dict:
@@ -50,111 +118,205 @@ def _flatten(prefix: str, tree: dict, out: dict) -> dict:
 
 
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
-    """Leaf path -> shape, with the layer stack's leading depth axis."""
-    _check_dense(cfg)
-    D, H, Hk, hd, F = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
-                       cfg.d_ff)
-    attn = {"ln": _norm_shape(cfg, D), "wq": (D, H * hd),
-            "wk": (D, Hk * hd), "wv": (D, Hk * hd), "wo": (H * hd, D)}
-    if cfg.attn_bias:
-        attn.update({"bq": (H * hd,), "bk": (Hk * hd,), "bv": (Hk * hd,)})
-    if cfg.mlp_kind == "gelu":
-        mlp = {"ln": _norm_shape(cfg, D), "wi": (D, F), "bi": (F,),
-               "wo": (F, D), "bo": (D,)}
-    else:
-        mlp = {"ln": _norm_shape(cfg, D), "wi": (D, F), "wg": (D, F),
-               "wo": (F, D)}
-    n_blocks, _ = cfg.scan_blocks()
-    layers = _flatten("layers/l0/", {"attn": attn, "mlp": mlp}, {})
-    shapes = {"embed": (cfg.padded_vocab, D),
+    """Leaf path -> shape, each stack of blocks with its leading depth
+    axis: ``layers`` (the scan blocks), ``dense_layers`` (DeepSeek's
+    leading dense blocks) and ``enc_layers`` (Whisper's encoder)."""
+    D, V = cfg.d_model, cfg.padded_vocab
+    n_blocks, pattern = cfg.scan_blocks()
+
+    def stack(prefix: str, tree: dict, n: int) -> dict:
+        return {k: (n,) + s for k, s in _flatten(prefix, tree, {}).items()}
+
+    shapes = {"embed": (V, D),
               **_flatten("final_norm/", _norm_shape(cfg, D), {}),
-              **{k: (n_blocks,) + s for k, s in layers.items()}}
+              **stack("layers/", _block_shapes(cfg, pattern,
+                                               cross=cfg.cross_attention),
+                      n_blocks)}
     if not cfg.tie_embeddings:
-        shapes["lm_head"] = (D, cfg.padded_vocab)
+        shapes["lm_head"] = (D, V)
+    if cfg.first_dense_layers:
+        shapes.update(stack("dense_layers/", _block_shapes(cfg, DENSE),
+                            cfg.first_dense_layers))
+    if cfg.encoder_layers:
+        shapes.update(stack("enc_layers/", _block_shapes(cfg, DENSE),
+                            cfg.encoder_layers))
+        shapes.update(_flatten("enc_norm/", _norm_shape(cfg, D), {}))
+    if cfg.mtp:
+        shapes["mtp_head"] = (D, V)
     # jax's tree_flatten order of the nested dict: sorted path by component
     return {k: shapes[k] for k in sorted(shapes, key=lambda p: p.split("/"))}
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     """The parameter count from the shapes alone.  ``active_only`` counts
-    the parameters a token reaches, which differs from the total only for
-    mixture-of-experts layers; the dense family here has none."""
-    return sum(math.prod(s) for s in param_shapes(cfg).values())
+    the expert weights a token reaches, top-k of the experts, with the
+    reference's rule (every ``wi``/``wg``/``wo`` under ``moe``, the shared
+    expert's included)."""
+    total = 0
+    for path, shape in param_shapes(cfg).items():
+        n = math.prod(shape)
+        if active_only and "/moe/" in path and \
+                path.split("/")[-1] in ("wi", "wg", "wo"):
+            n = int(n * cfg.moe_top_k / max(cfg.num_experts, 1))
+        total += n
+    return total
 
 
 def _init_leaf(generator: torch.Generator, path: str, shape,
                cfg: ModelConfig) -> torch.Tensor:
-    """Fan-in scaled normal, ones for scales, zeros for biases (the
-    reference's rules; the port draws its own numbers from ``generator``)."""
-    if path.endswith("scale"):
-        return torch.ones(shape, dtype=cfg.dtype)
-    if path.endswith(("bias", "bq", "bk", "bv", "bi", "bo")):
-        return torch.zeros(shape, dtype=cfg.dtype)
+    """The reference's rules: ones for scales and the SSM's D skip, zeros
+    for biases (``dt_bias`` among them: the reference's "bias" rule comes
+    before its -4.6 rule), ``a_log`` = log(1..ds) on every channel, else a
+    fan-in scaled normal (0.02 for the embedding and output heads, output
+    projections scaled down with depth).  The port draws its own numbers
+    from ``generator``, on the generator's device."""
+    dev = generator.device
+    if path.endswith(("scale", "d_skip")):
+        return torch.ones(shape, dtype=cfg.dtype, device=dev)
+    if path.endswith(("bias", "conv_b", "bq", "bk", "bv", "bi", "bo")):
+        return torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    if path.endswith("a_log"):
+        a = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                   device=dev))
+        return a.expand(shape).to(cfg.dtype)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    std = 0.02 if path.endswith(("embed", "lm_head")) else \
+    std = 0.02 if path.endswith(("embed", "lm_head", "mtp_head")) else \
         1.0 / math.sqrt(max(fan_in, 1))
-    if path.endswith("wo"):
+    if path.endswith(("wo", "out_proj")):
         std /= math.sqrt(2.0 * max(cfg.num_layers, 1))
-    w = torch.randn(shape, generator=generator, dtype=torch.float32) * std
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=dev) * std
     return w.to(cfg.dtype)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict[str, torch.Tensor]:
-    """Random parameters drawn on the host from ``generator``, then moved
-    to ``device`` (CUDA unless the caller asks for another)."""
+    """Random parameters drawn from ``generator`` on its own device (a CPU
+    generator gives the same numbers wherever they go), then moved to
+    ``device`` (CUDA unless the caller asks for another)."""
     return {path: _init_leaf(generator, path, shape, cfg).to(device)
             for path, shape in param_shapes(cfg).items()}
 
 
-def _block(params: Params, prefix: str, layer: int) -> dict:
-    """The ``prefix`` sub-dict of one depth slice of the layer stack."""
-    return {k[len(prefix):]: v[layer] for k, v in params.items()
-            if k.startswith(prefix)}
+# ---------------------------------------------------------------------------
+# forward / loss
+# ---------------------------------------------------------------------------
 
-
-def _norm(params: Params, prefix: str) -> dict:
+def _sub(params: Params, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def _apply_block(cfg: ModelConfig, pattern, blk: Params, x: torch.Tensor,
+                 positions: torch.Tensor, *,
+                 enc_out: Optional[torch.Tensor] = None,
+                 bidirectional: bool = False):
+    """All sub-layers of one block (one depth slice of a stack).  Returns
+    (x, the MoE layers' aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (mixer, mlp_kind) in enumerate(pattern):
+        sub = _sub(blk, f"l{i}/")
+        if mixer == "attn":
+            p = _sub(sub, "attn/")
+            h = L.apply_norm(cfg, _sub(p, "ln/"), x)
+            if cfg.mla:
+                h = L.mla_attention(cfg, p, h, positions)
+            else:
+                h = L.attention(cfg, p, h, positions, causal=not bidirectional,
+                                window=cfg.sliding_window)
+            x = x + h
+            xp = _sub(sub, "xattn/")
+            if enc_out is not None and xp:
+                h = L.apply_norm(cfg, _sub(xp, "ln/"), x)
+                x = x + L.attention(cfg, xp, h, positions, enc_out=enc_out)
+        else:
+            p = _sub(sub, "mamba/")
+            x = x + L.mamba(cfg, p, L.apply_norm(cfg, _sub(p, "ln/"), x))
+        if mlp_kind == "dense":
+            p = _sub(sub, "mlp/")
+            x = x + L.mlp(cfg, p, L.apply_norm(cfg, _sub(p, "ln/"), x))
+        elif mlp_kind == "moe":
+            p = _sub(sub, "moe/")
+            h, a = L.moe(cfg, p, L.apply_norm(cfg, _sub(p, "ln/"), x))
+            x = x + h
+            aux = aux + a
+    return x, aux
+
+
+def _run_blocks(cfg: ModelConfig, pattern, params: Params, prefix: str,
+                x: torch.Tensor, positions: torch.Tensor, **kw):
+    """Every block of the stack under ``prefix``, in depth order."""
+    stack = _sub(params, prefix)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in range(next(iter(stack.values())).shape[0]):
+        x, a = _apply_block(cfg, pattern, {k: v[layer] for k, v in stack.items()},
+                            x, positions, **kw)
+        aux = aux + a
+    return x, aux
+
+
+def _positions_for(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
+    """(B, S) positions; for M-RoPE (3, B, S): the patches on a square
+    grid at t = 0, the text after the grid on all three rows."""
+    if cfg.pos_kind == "mrope":
+        P = cfg.num_frontend_tokens
+        grid = max(1, math.isqrt(max(P, 1)))
+        pidx = torch.arange(P, dtype=torch.int32, device=device)
+        text = torch.arange(S - P, dtype=torch.int32, device=device) + grid
+        pos = torch.stack([torch.cat([torch.zeros_like(pidx), text]),
+                           torch.cat([pidx // grid, text]),
+                           torch.cat([pidx % grid, text])])      # (3, S)
+        return pos[:, None, :].expand(3, B, S)
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (hidden (B, S, D), aux_loss)."""
-    _check_dense(cfg)
+    """Full-sequence forward.  Returns (hidden (B, S, D), aux_loss).  A
+    vision model's ``patch_embeds`` go in front of the tokens; an audio
+    model's ``audio_embeds`` run through the bidirectional encoder, whose
+    output the decoder blocks cross-attend to."""
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
+    dev = tokens.device
+    n_blocks, pattern = cfg.scan_blocks()
     x = params["embed"][tokens]
-    pos = torch.arange(S, device=tokens.device)
+    if cfg.frontend == "vision":
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    positions = _positions_for(cfg, B, S, dev)
     if cfg.pos_kind == "sinusoidal":
-        x = x + L.sinusoidal_embed(pos, cfg.d_model)[None].to(x.dtype)
-    positions = pos[None].expand(B, S)
-    n_blocks, _ = cfg.scan_blocks()
-    window = cfg.sliding_window
-    for layer in range(n_blocks):
-        attn = _block(params, "layers/l0/attn/", layer)
-        mlp = _block(params, "layers/l0/mlp/", layer)
-        h = L.apply_norm(cfg, _norm(attn, "ln/"), x)
-        x = x + L.attention(cfg, attn, h, positions, causal=True, window=window)
-        h = L.apply_norm(cfg, _norm(mlp, "ln/"), x)
-        x = x + L.mlp(cfg, mlp, h)
-    x = L.apply_norm(cfg, _norm(params, "final_norm/"), x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
-
-
-def _logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head
+        x = x + L.sinusoidal_embed(torch.arange(S, device=dev),
+                                   cfg.d_model)[None].to(x.dtype)
+    enc_out = None
+    if cfg.encoder_layers:
+        e = batch["audio_embeds"].to(x.dtype)
+        Te = e.shape[1]
+        e = e + L.sinusoidal_embed(torch.arange(Te, device=dev),
+                                   cfg.d_model)[None].to(e.dtype)
+        e, _ = _run_blocks(cfg, DENSE, params, "enc_layers/", e,
+                           _positions_for(cfg, B, Te, dev), bidirectional=True)
+        enc_out = L.apply_norm(cfg, _sub(params, "enc_norm/"), e)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if cfg.first_dense_layers:
+        x, a = _run_blocks(cfg, DENSE, params, "dense_layers/", x, positions)
+        aux = aux + a
+    x, a = _run_blocks(cfg, pattern, params, "layers/", x, positions,
+                       enc_out=enc_out)
+    aux = aux + a
+    return L.apply_norm(cfg, _sub(params, "final_norm/"), x), aux
 
 
 def _ce_loss_chunked(cfg: ModelConfig, params: Params, h: torch.Tensor,
-                     labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+                     labels: torch.Tensor, mask: torch.Tensor,
+                     head_name: str = "lm_head") -> torch.Tensor:
     """Cross-entropy over the padded vocab, chunked along the sequence."""
+    head = params["embed"].T if cfg.tie_embeddings else params[head_name]
     S = h.shape[1]
     sc = min(LOSS_CHUNK, S)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, S, sc):
-        logits = _logits(cfg, params, h[:, c0:c0 + sc]).to(torch.float32)
+        logits = (h[:, c0:c0 + sc] @ head).to(torch.float32)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             labels[:, c0:c0 + sc, None].long())[..., 0]
@@ -166,11 +328,23 @@ def _ce_loss_chunked(cfg: ModelConfig, params: Params, h: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: Params,
             batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """Next-token LM loss; the last position has no label and is masked."""
+    """Next-token LM loss over the text positions (a VLM's patches carry
+    none; the last position has no label), plus DeepSeek's MTP term (the
+    token two ahead through ``mtp_head``, weighted ``mtp_weight``) and the
+    MoE aux loss."""
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B, St = tokens.shape
     h, aux = forward(cfg, params, batch)
-    labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
-    mask = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
+    P = cfg.num_frontend_tokens if cfg.frontend == "vision" else 0
+    ht = h[:, P:]
+    labels = F.pad(tokens[:, 1:], (0, 1))
+    mask = torch.ones((B, St), dtype=torch.bool, device=tokens.device)
     mask[:, -1] = False
-    return _ce_loss_chunked(cfg, params, h, labels, mask) + aux
+    loss = _ce_loss_chunked(cfg, params, ht, labels, mask)
+    if cfg.mtp:
+        labels2 = F.pad(tokens[:, 2:], (0, 2))
+        mask2 = torch.ones((B, St), dtype=torch.bool, device=tokens.device)
+        mask2[:, -2:] = False
+        loss = loss + cfg.mtp_weight * _ce_loss_chunked(
+            cfg, params, ht, labels2, mask2, head_name="mtp_head")
+    return loss + aux

@@ -32,6 +32,8 @@ from repro_torch.kernels import fwht as fw
 from repro_torch.kernels import gaussian_sketch as gs
 from repro_torch.launch.driver import run_host_loop, run_scan
 from repro_torch.models.config import ModelConfig
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.core.intrinsic_dim import make_hvp
 from repro_torch.models.model import init_params, loss_fn
 
 torch.set_num_threads(2)
@@ -726,3 +728,64 @@ def test_supervised_rollback_relaunches_on_the_card():
     assert [t for t, _ in devices] == [2, 4, 4, 6]
     assert all(d == {"cuda"} for _, d in devices)
     assert all(v.is_cuda and bool(torch.isfinite(v).all()) for v in p.values())
+
+
+def _smoke_batch(cfg, device, B=2, S=20):
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen)}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.randn(
+            (B, cfg.num_frontend_tokens, cfg.d_model), generator=gen) * 0.02
+    if cfg.frontend == "audio":
+        batch["audio_embeds"] = torch.randn(
+            (B, cfg.encoder_seq, cfg.d_model), generator=gen) * 0.02
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_family_loss_and_grads_on_card_match_cpu(arch):
+    """Each architecture's SMOKE loss and gradients on the card against
+    the CPU from the same weights (TF32 off): float32 matmul orders, the
+    loss to 1e-5 relative, each gradient leaf to 1e-3 of its largest
+    entry plus 1e-3 relative."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        for p in params.values():
+            p.requires_grad_(True)
+        loss = loss_fn(cfg, params, _smoke_batch(cfg, dev))
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        out[dev] = (loss.item(), {k: None if g is None else g.cpu()
+                                  for k, g in zip(params, grads)})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for k, want in out["cpu"][1].items():
+        got = out["cuda"][1][k]
+        if want is None:
+            assert got is None, k
+            continue
+        torch.testing.assert_close(got, want, rtol=1e-3,
+                                   atol=1e-3 * float(want.abs().max()) + 1e-12)
+
+
+@pytest.mark.cuda
+def test_hvp_on_card_matches_cpu():
+    """The forward-over-reverse HVP of bert_100m SMOKE on the card
+    against the CPU on the same vector: to 1e-4 of its largest entry plus
+    1e-3 relative."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("bert_100m", smoke=True)
+    hv, v = {}, None
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        mv, d = make_hvp(lambda p, b: loss_fn(cfg, p, b), params,
+                         _smoke_batch(cfg, dev, S=32))
+        if v is None:
+            v = torch.randn(d, generator=torch.Generator().manual_seed(1))
+        hv[dev] = mv(v.to(dev)).cpu()
+    torch.testing.assert_close(hv["cuda"], hv["cpu"], rtol=1e-3,
+                               atol=1e-4 * float(hv["cpu"].abs().max()))

@@ -128,3 +128,21 @@ def test_apply_update_matches_reference(name):
     assert set(got) == set(_flat(rs))
     for k, v in _flat(rs).items():
         np.testing.assert_allclose(got[k], v, rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+def test_bfloat16_tree_crosses_the_bridge_bit_for_bit():
+    """A bfloat16 tree of the reference crosses ``params_from_numpy`` as
+    torch.bfloat16 and comes back through ``params_to_numpy`` with the
+    same bits (numpy has no bfloat16 of its own; jax's is ml_dtypes')."""
+    vals = jax.random.normal(jax.random.key(5), (3, 7)) * 40.0
+    tree = {"w": np.array(vals.astype(jnp.bfloat16)),
+            "opt": {"m": np.array(jnp.asarray([1e-30, -0.0, 3.5e38, 1.0],
+                                              jnp.bfloat16))}}
+    got = params_from_numpy(tree, "cpu")
+    assert got["w"].dtype == got["opt"]["m"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["w"].to(torch.float32).numpy(),
+                                  np.asarray(vals.astype(jnp.bfloat16), np.float32))
+    back = params_to_numpy(got)
+    for a, b in ((back["w"], tree["w"]), (back["opt"]["m"], tree["opt"]["m"])):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.view(np.uint16), b.view(np.uint16))
