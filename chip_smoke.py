@@ -93,7 +93,25 @@ Phases (any failed check or exception exits nonzero):
    0.99; for dbrx the top-k choices and kept-mask entries that differ
    between the two), and every architecture's SMOKE loss and gradients on the card
    against the CPU within phase 3's tolerance (jamba and deepseek-v3
-   exceed one card at full width even at one block).
+   exceed one card at full width even at one block);
+12. cached decode and serving (no TPU kernel on this path; the kernels'
+   launch counts are set to 0 before it and printed after): (a)
+   llama3.2-1b at full width and all 16 blocks in bfloat16 served through
+   ``launch/serve.run``, 8 requests of a 32-token prompt from
+   ``synthetic_lm_batch`` and 96 greedy tokens (max_seq 128), twice (the
+   same tokens, finite logits, the cache's bytes against ``cache_shapes``),
+   with the median ms a step, tokens/s and the peak memory; one step's
+   device and host time by layer kind and the device's idle share
+   (torch.profiler); then the same weights in float32, every position's
+   logits against ``forward`` on the decoded sequence (rtol 2e-2, atol
+   2e-3) and the share of bf16 greedy tokens equal to the float32 ones;
+   (b) each of 11c's families at full width with one block, 16 decode
+   steps at B = 2 in its dtype and in float32 on the same weights, the
+   float32 logits against ``forward`` (whisper's ``encode_for_decode``
+   over its 1,500 frames first, ``xk`` against ``enc_out @ wk``); (c) all
+   twelve SMOKE archs' decode teacher-forced for 24 steps at max_seq 32,
+   card against CPU (logits and caches within phase 3's tolerance), and
+   ``serve.example()``'s greedy tokens card against CPU.
 
 Phases 4, 5, 6, 8b and 11b end with a breakdown of one round's time by step,
 and check each round's uplink bits (per-client payload times the
@@ -121,6 +139,7 @@ import functools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -157,7 +176,7 @@ from repro_torch.core.safl import (SAFLConfig, fedopt_round,  # noqa: E402
 from repro_torch.core.sketch import SketchConfig  # noqa: E402
 from repro_torch.data.synthetic import (BigramLMData,  # noqa: E402
                                         ClsDataConfig, GaussianClsData,
-                                        LMDataConfig)
+                                        LMDataConfig, synthetic_lm_batch)
 from repro_torch.fed import (AsyncConfig, CodecConfig,  # noqa: E402
                              FaultTable, SentinelConfig, UniformParticipation,
                              init_async_state, make_async_round)
@@ -172,7 +191,8 @@ from repro_torch.kernels import countsketch as cs  # noqa: E402
 from repro_torch.kernels import fwht as fw  # noqa: E402
 from repro_torch.kernels import gaussian_sketch as gs  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
-from repro_torch.launch import heavy_tail, sketch_size_sweep  # noqa: E402
+from repro_torch.launch import heavy_tail, serve  # noqa: E402
+from repro_torch.launch import sketch_size_sweep  # noqa: E402
 from repro_torch.launch import supervisor as supervisor_module  # noqa: E402
 from repro_torch.launch import train_lm  # noqa: E402
 from repro_torch.launch.driver import (COUNTER_KEYS,  # noqa: E402
@@ -181,9 +201,11 @@ from repro_torch.launch.supervisor import (SupervisorConfig,  # noqa: E402
                                            format_recovery_log,
                                            run_supervised)
 from repro_torch.models import layers as layers_module  # noqa: E402
+from repro_torch.models import model as model_module  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
-from repro_torch.models.model import (init_params, loss_fn,  # noqa: E402
-                                     param_shapes)
+from repro_torch.models.model import (_cache_dtype, _logits,  # noqa: E402
+                                     cache_shapes, decode_step, forward,
+                                     init_params, loss_fn, param_shapes)
 from repro_torch.obs import REQUIRED_KEYS, ShardWriter, Telemetry  # noqa: E402
 from repro_torch.obs import telemetry as telemetry_module  # noqa: E402
 from repro_torch.obs import write_manifest  # noqa: E402
@@ -2241,6 +2263,300 @@ def phase_zoo_steps() -> None:
               and outside == 0, f"{arch} SMOKE: card and CPU differ")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: cached decode and serving (no TPU kernel on this path)
+# ---------------------------------------------------------------------------
+
+# 12a's traffic: 8 requests, each a 32-token prompt then 96 greedy tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 8, 32, 96, 128
+SERVE_WARMUP = 4            # calls of a run left out of its median ms a step
+PROFILE_STEPS = 8           # decode steps under torch.profiler
+# decode against forward: tests/test_models.py::test_decode_matches_forward_dense
+DECODE_FWD_TOL = dict(rtol=2e-2, atol=2e-3)
+FAMILY_DECODE_STEPS = 16    # 12b: decode steps of each family at B = 2
+SMOKE_DECODE_STEPS, SMOKE_MAX_SEQ = 24, 32   # 12c: h2o-danube's 16-slot ring wraps
+
+
+class DecodeSpans:
+    """A torch.profiler range around every call of each decode layer kind
+    (the layers of ``models.layers`` and the output head, wrapped in their
+    modules inside the ``with``).  The ranges do not nest."""
+
+    TARGETS = ((layers_module, ("apply_norm", "attention_decode",
+                                "cross_attention_decode", "mla_attention_decode",
+                                "mamba_decode", "mlp", "moe")),
+               (model_module, ("_logits",)))
+
+    def __enter__(self):
+        self.orig = [(mod, name, getattr(mod, name))
+                     for mod, names in self.TARGETS for name in names]
+        for mod, name, fn in self.orig:
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    @staticmethod
+    def _wrap(name, fn):
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(f"decode/{name}"):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
+
+
+def profile_decode(model: ModelConfig, params: dict, cache: dict,
+                   tokens: torch.Tensor, start: int) -> None:
+    """Where a decode step's time goes: ``PROFILE_STEPS`` steps from
+    position ``start`` on the host clock (device synchronised), then the
+    same steps under torch.profiler with each layer kind in a range: device
+    and host ms a step by layer kind, kernels a step, and the device's idle
+    share (1 - kernel time / the unprofiled wall time)."""
+    pos = torch.arange(start, start + PROFILE_STEPS, device="cuda")
+
+    def steps():
+        for i in range(PROFILE_STEPS):
+            decode_step(model, params, cache, tokens[:, i:i + 1], pos[i])
+    steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    with DecodeSpans(), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        steps()
+        torch.cuda.synchronize()
+    spans, busy, kernels = {}, 0.0, 0
+    for e in prof.events():
+        if e.name.startswith("decode/"):
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                dev, host, n = spans.get(e.name[7:], (0.0, 0.0, 0))
+                spans[e.name[7:]] = (dev + e.device_time_total, host + e.cpu_time_total, n + 1)
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.device_time_total
+            kernels += 1
+    busy_ms = busy / 1e3 / PROFILE_STEPS
+    check(busy_ms > 0, "decode profile: no device time (torch.profiler saw no kernel)")
+    print(f"{model.name} decode profile ({PROFILE_STEPS} steps from position {start}): "
+          f"{wall:.3f} ms a step on the host clock; device busy {busy_ms:.3f} ms a step "
+          f"in {kernels / PROFILE_STEPS:.0f} kernels: device idle "
+          f"{100 * max(0.0, 1 - busy_ms / wall):.1f}% of the step")
+    rest = busy_ms
+    for name, (dev, host, n) in sorted(spans.items(), key=lambda kv: -kv[1][0]):
+        dev_ms = dev / 1e3 / PROFILE_STEPS
+        rest -= dev_ms
+        print(f"  {name}: device {dev_ms:.3f} ms a step ({100 * dev_ms / busy_ms:.1f}%), "
+              f"host {host / 1e3 / PROFILE_STEPS:.3f} ms, {n // PROFILE_STEPS} calls a step")
+    print(f"  outside the layers (embedding, residual adds, slicing): device "
+          f"{rest:.3f} ms a step ({100 * rest / busy_ms:.1f}%)")
+
+
+def cache_nbytes(model: ModelConfig, B: int, max_seq: int) -> int:
+    """The cache's bytes from ``cache_shapes`` and ``_cache_dtype``."""
+    return sum(math.prod(s) * torch.empty((), dtype=_cache_dtype(model, k)).element_size()
+               for k, s in cache_shapes(model, B, max_seq).items())
+
+
+def forward_logits(model: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    h, _ = forward(model, params, batch)
+    return _logits(model, params, h)[..., :model.vocab_size]
+
+
+def check_decode_vs_forward(what: str, dec: torch.Tensor, full: torch.Tensor) -> None:
+    """dec, full: (B, S, vocab) float32: the last position's logits and
+    every position's within ``DECODE_FWD_TOL``."""
+    worst = float((dec - full).abs().max())
+    last = torch.allclose(dec[:, -1], full[:, -1], **DECODE_FWD_TOL)
+    every = torch.allclose(dec, full, **DECODE_FWD_TOL)
+    print(f"{what}: float32 decode against forward, max abs diff {worst:.3e} over "
+          f"{dec.shape[1]} positions (rtol {DECODE_FWD_TOL['rtol']}, atol "
+          f"{DECODE_FWD_TOL['atol']}): last {last}, every position {every}")
+    check(last and every, f"{what}: float32 decode differs from forward")
+
+
+def phase_serve_full() -> None:
+    """Phase 12a: llama3.2-1b served at full width and all 16 blocks in
+    bfloat16 through ``launch/serve.run`` (8 requests of a 32-token prompt
+    from ``synthetic_lm_batch``, 96 greedy tokens, max_seq 128), twice;
+    the step's profile; then the same weights in float32 against
+    ``forward`` on the decoded sequence."""
+    print("== phase 12a: serving llama3.2-1b at full width and depth ==")
+    t0 = time.perf_counter()
+    model = llama3_2_1b.CONFIG
+    params = init_params(model, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    d = sum(p.numel() for p in params.values())
+    prompt = synthetic_lm_batch(prng.key(12), SERVE_BATCH, SERVE_PROMPT,
+                                model.vocab_size, "cuda")["tokens"]
+    kw = dict(batch=SERVE_BATCH, steps=SERVE_NEW, max_seq=SERVE_MAX_SEQ,
+              prompt=prompt, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [serve.run(model, params=params, **kw) for _ in range(2)]
+    peak = peak_gib()
+    out = runs[1]
+    want_bytes = cache_nbytes(model, SERVE_BATCH, SERVE_MAX_SEQ)
+    for i, r in enumerate(runs):
+        ms = r["step_ms"][SERVE_WARMUP:]
+        print(f"llama3.2-1b (d = {d:,}, {model.num_layers} blocks, {model.dtype}) run {i + 1}: "
+              f"{SERVE_BATCH} requests x ({SERVE_PROMPT} prompt + {SERVE_NEW} new) tokens, "
+              f"{len(r['step_ms'])} decode calls in {r['seconds']:.2f} s; median "
+              f"{statistics.median(ms):.3f} ms a step (min {min(ms):.3f}, max "
+              f"{max(ms):.3f}, after {SERVE_WARMUP} calls), {r['tokens_per_s']:.0f} "
+              f"new tokens/s")
+    print(f"llama3.2-1b: cache {out['cache_bytes']:,} bytes ({len(out['cache'])} "
+          f"tensors; cache_shapes x dtype size: {want_bytes:,}); peak device "
+          f"memory {peak:.2f} GiB")
+    check(out["cache_bytes"] == want_bytes and
+          all(c.is_cuda and c.dtype == _cache_dtype(model, k)
+              for k, c in out["cache"].items()),
+          "llama3.2-1b: the cache's tensors differ from cache_shapes")
+    check(bool(torch.isfinite(out["logits"]).all()), "llama3.2-1b: logits not finite")
+    check(torch.equal(runs[0]["tokens"], runs[1]["tokens"]),
+          "llama3.2-1b: two runs decode different tokens")
+    check(out["tokens"].shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW),
+          f"llama3.2-1b: tokens {tuple(out['tokens'].shape)}")
+    mid = SERVE_PROMPT + SERVE_NEW // 2
+    profile_decode(model, params, out["cache"], out["tokens"][:, mid:], start=mid)
+    bf16_tokens = out["tokens"]
+    del runs, out
+    params = {k: params[k].float() for k in list(params)}
+    torch.cuda.empty_cache()
+    model32 = dataclasses.replace(model, dtype=torch.float32)
+    out32 = serve.run(model32, params=params, keep_logits=True, **kw)
+    full = forward_logits(model32, params, {"tokens": out32["tokens"][:, :-1]})
+    check_decode_vs_forward("llama3.2-1b", out32["all_logits"].transpose(0, 1), full)
+    same = (bf16_tokens[:, SERVE_PROMPT:] == out32["tokens"][:, SERVE_PROMPT:])
+    print(f"llama3.2-1b: float32 median {statistics.median(out32['step_ms'][SERVE_WARMUP:]):.3f} "
+          f"ms a step; {int(same.sum())} of {same.numel()} bf16 greedy tokens equal "
+          f"the float32 ones ({100 * float(same.float().mean()):.1f}%; not checked); "
+          f"phase 12a {time.perf_counter() - t0:.1f} s")
+    del params, out32, full
+    torch.cuda.empty_cache()
+
+
+def encoder_out(model: ModelConfig, params: dict, audio: torch.Tensor) -> torch.Tensor:
+    """The audio encoder's normed output, as ``encode_for_decode`` runs it."""
+    B, Te, _ = audio.shape
+    e = audio + layers_module.sinusoidal_embed(
+        torch.arange(Te, device=audio.device), model.d_model)[None].to(audio.dtype)
+    e, _ = model_module._run_blocks(model, model_module.DENSE, params, "enc_layers/", e,
+                                    model_module._positions_for(model, B, Te, audio.device),
+                                    bidirectional=True)
+    return layers_module.apply_norm(model, model_module._sub(params, "enc_norm/"), e)
+
+
+def phase_decode_families() -> None:
+    """Phase 12b: each family's decode at full width with one block (the
+    architectures of 11c), 16 steps at B = 2 in its dtype and in float32 on
+    the same weights, the float32 run against ``forward``; whisper encodes
+    its 1,500 frames first."""
+    print("== phase 12b: each family's decode at full width, one block ==")
+    t0 = time.perf_counter()
+    for arch, _, _ in FAMILY_STEPS:
+        model = one_block(get_config(arch))
+        params = init_params(model, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, model.vocab_size, (2, FAMILY_DECODE_STEPS),
+                               generator=gen, device="cuda")
+        audio = (torch.randn((2, model.encoder_seq, model.d_model), generator=gen,
+                             device="cuda") * 0.02) if model.encoder_layers else None
+        run = functools.partial(serve.run, batch=2, steps=1, max_seq=FAMILY_DECODE_STEPS,
+                                prompt=tokens, device="cuda", keep_logits=True)
+        out = run(model, params=params, audio=audio if audio is None else audio.to(model.dtype))
+        lo, ms_lo, cache = out["all_logits"].transpose(0, 1).float(), out["step_ms"], out["cache"]
+        nbytes = out["cache_bytes"]
+        check(nbytes == cache_nbytes(model, 2, FAMILY_DECODE_STEPS),
+              f"{arch}: cache bytes {nbytes}")
+        if model.encoder_layers:
+            enc = encoder_out(model, params, audio.to(model.dtype))
+            xk = (enc @ params["layers/l0/xattn/wk"][0]).reshape(cache["layers/l0/xk"][0].shape)
+            ok = torch.equal(cache["layers/l0/xk"][0], xk)
+            print(f"{arch}: encode_for_decode over {model.encoder_seq} frames; xk equals "
+                  f"enc_out @ wk: {ok}")
+            check(ok, f"{arch}: xk differs from enc_out @ wk")
+        del cache, out
+        params = {k: params[k].float() for k in list(params)}
+        model32 = dataclasses.replace(model, dtype=torch.float32)
+        out = run(model32, params=params, audio=audio)
+        hi, ms_hi = out["all_logits"].transpose(0, 1), out["step_ms"]
+        del out
+        # decode at B tokens never fills an expert's capacity (8 slots or
+        # more for 2 x top-k choices); forward runs at a factor that drops none
+        fwd = dataclasses.replace(model32, capacity_factor=max(
+            model.capacity_factor, model.num_experts / max(model.moe_top_k, 1)))
+        batch = {"tokens": tokens}
+        if model.frontend == "vision":
+            # decode gives a text token its position on all three M-RoPE
+            # rows: plain rope at the same frequencies, without patches
+            fwd = dataclasses.replace(fwd, pos_kind="rope", frontend="none",
+                                      num_frontend_tokens=0)
+        if model.encoder_layers:
+            batch["audio_embeds"] = audio
+        check_decode_vs_forward(arch, hi, forward_logits(fwd, params, batch))
+        gap = float((lo - hi).abs().max())
+        print(f"{arch} (1 block, d = {sum(p.numel() for p in params.values()):,}): "
+              f"{model.dtype} decode median {statistics.median(ms_lo[2:]):.3f} ms a step, "
+              f"float32 {statistics.median(ms_hi[2:]):.3f}; cache {nbytes:,} bytes "
+              f"(B = 2, max_seq {FAMILY_DECODE_STEPS}); {model.dtype} logits against "
+              f"float32 max abs diff {gap:.3e}")
+        check(bool(torch.isfinite(lo).all()), f"{arch}: {model.dtype} logits not finite")
+        del params, lo, hi
+        torch.cuda.empty_cache()
+    print(f"phase 12b {time.perf_counter() - t0:.1f} s")
+
+
+def phase_decode_smoke() -> None:
+    """Phase 12c: every SMOKE arch's decode, teacher-forced for 24 steps at
+    max_seq 32 on the card against the CPU from the same weights (logits
+    and final caches within phase 3's tolerance), then ``serve.example()``
+    card against CPU."""
+    print("== phase 12c: every SMOKE arch's decode, card against CPU ==")
+    for arch in ARCHS:
+        model = get_config(arch, smoke=True)
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, model.vocab_size, (2, SMOKE_DECODE_STEPS), generator=gen)
+        audio = torch.randn((2, model.encoder_seq, model.d_model), generator=gen) * 0.02
+        out = {}
+        for dev in ("cpu", "cuda"):
+            r = serve.run(model, batch=2, steps=1, max_seq=SMOKE_MAX_SEQ,
+                          prompt=tokens.to(dev), device=dev, keep_logits=True,
+                          params=init_params(model, torch.Generator().manual_seed(0),
+                                             device=dev),
+                          audio=audio.to(dev) if model.encoder_layers else None)
+            out[dev] = {"logits": r["all_logits"].cpu(),
+                        **{k: v.cpu() for k, v in r["cache"].items()}}
+        worst = max(float((out["cuda"][k] - v).abs().max()) for k, v in out["cpu"].items())
+        outside = sum(int((~torch.isclose(out["cuda"][k], v, rtol=TRAJ_RTOL,
+                                          atol=TRAJ_ATOL)).sum())
+                      for k, v in out["cpu"].items())
+        print(f"{arch} SMOKE decode ({SMOKE_DECODE_STEPS} steps, {len(out['cpu']) - 1} "
+              f"cache tensors): card against CPU max abs diff {worst:.3e}, outside "
+              f"atol {TRAJ_ATOL}, rtol {TRAJ_RTOL}: {outside}")
+        check(outside == 0, f"{arch} SMOKE decode: card and CPU differ")
+    ex = {dev: serve.example(dev, params=init_params(
+        serve.EXAMPLE, torch.Generator().manual_seed(0), dev), keep_logits=True)
+        for dev in ("cpu", "cuda")}
+    lc, lg = ex["cpu"]["all_logits"], ex["cuda"]["all_logits"].cpu()
+    top2 = lc.topk(2, dim=-1).values
+    close = ((top2[..., 0] - top2[..., 1]) <= 2 * TRAJ_ATOL).any(dim=-1)
+    # calls before the first close one see the same tokens on both devices
+    calls = int(close.float().argmax()) if bool(close.any()) else lc.shape[0]
+    ok_logits = torch.allclose(lg[:calls + 1], lc[:calls + 1], rtol=TRAJ_RTOL,
+                               atol=TRAJ_ATOL)
+    same = torch.equal(ex["cuda"]["tokens"][:, :calls + 1].cpu(),
+                       ex["cpu"]["tokens"][:, :calls + 1])
+    print(f"serve.example: tokens card against CPU equal through call {calls} of "
+          f"{lc.shape[0]} (the first whose top-2 margin on the CPU is within "
+          f"{2 * TRAJ_ATOL}): {same}; logits there within tolerance: {ok_logits}; "
+          f"all {ex['cuda']['tokens'].numel()} tokens equal: "
+          f"{torch.equal(ex['cuda']['tokens'].cpu(), ex['cpu']['tokens'])}")
+    check(same and ok_logits, "serve.example: card and CPU differ")
+
+
 def print_cs_launches(name: str, n: dict[str, int]) -> None:
     print(f"{name}: countsketch route called {n['countsketch']} times, "
           f"{n['countsketch_device']} device launches (kernels and memsets), "
@@ -2328,6 +2644,17 @@ def main() -> int:
         by_name[name]["launches"] = calls
     phase_zoo_steps()
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    counts = (cs.LAUNCHES, fw.LAUNCHES, *gs.LAUNCHES.values())
+    for c in counts:
+        c.n = 0
+    phase_serve_full()
+    phase_decode_families()
+    phase_decode_smoke()
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s; the decode path launched "
+          f"{sum(c.n for c in counts)} of the TPU kernels' counterparts (it reaches "
+          f"none, as in the reference)")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")

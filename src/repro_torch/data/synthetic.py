@@ -9,7 +9,8 @@ distributions.  The batches come from the device samplers
 (``data/device.py``), or from the host: ``client_batch`` and
 ``round_batch`` draw with numpy's ``default_rng`` exactly as the
 reference's do, and hand the tensors to a device (tokens and labels as
-int64, the port's index type).
+int64, the port's index type).  ``synthetic_lm_batch`` draws uniform
+random tokens through ``prng.randint``, jax's stream bit for bit.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,3 +143,12 @@ class GaussianClsData:
         from repro_torch.data.device import DeviceGaussianClsSampler
         return DeviceGaussianClsSampler.from_data(self, batch_per_client,
                                                   local_steps)
+
+
+def synthetic_lm_batch(key: prng.Key, batch: int, seq: int, vocab: int,
+                       device="cuda") -> dict:
+    """Pure-random tokens ``(batch, seq)`` in [0, vocab) on ``device``: the
+    reference's ``jax.random.randint(key, (batch, seq), 0, vocab)`` bit for
+    bit, as int64 (the port's index type) where the reference's are
+    int32."""
+    return {"tokens": prng.randint(key, (batch, seq), 0, vocab, device)}

@@ -2,8 +2,7 @@
 
 The same fields as the reference, with torch dtypes, so a config file of
 the reference copies over unchanged apart from its dtype.  The port's
-model trains every family; its cached decode path waits for ROADMAP
-A-10 step 3."""
+model trains and serves (cached decode) every family."""
 
 from __future__ import annotations
 

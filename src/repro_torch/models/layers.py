@@ -1,15 +1,21 @@
-"""Model layers of every family, in PyTorch (the training path).
+"""Model layers of every family, in PyTorch: the full-sequence path
+(train and prefill) and the cached decode path (one new token).
 
-Counterpart of ``repro/models/layers.py``'s full-sequence layers: norms,
-rotary (and the VLM's multimodal M-RoPE) and sinusoidal positions,
-blockwise exact GQA attention (causal, optional sliding window, or
-cross-attention to an encoder), DeepSeek's MLA in its unabsorbed form,
-the MLPs, token-choice top-k MoE with capacity and scatter dispatch, and
-the Mamba-1 selective SSM.  Arithmetic follows the reference: float32
-norms with ``rsqrt(var + eps)`` of the biased variance, masked scores set
-to -1e30 before the softmax, tanh-approximate GELU (``jax.nn.gelu``'s
-default), a float32 router and SSM state.  The reference's cached decode
-layers wait for ROADMAP A-10 step 3.
+Counterpart of ``repro/models/layers.py``: norms, rotary (and the VLM's
+multimodal M-RoPE) and sinusoidal positions, blockwise exact GQA attention
+(causal, optional sliding window, or cross-attention to an encoder),
+DeepSeek's MLA in its unabsorbed form, the MLPs, token-choice top-k MoE
+with capacity and scatter dispatch, and the Mamba-1 selective SSM; and
+their one-token decode layers: ``attention_decode`` (a ring-buffered KV
+cache for the sliding window, keys stored rotated), ``cross_attention_decode``
+(against the encoder's cached keys and values), ``mla_attention_decode``
+(the absorbed form, caching only the kv latent and the rotary key) and
+``mamba_decode`` (one recurrence step, a float32 state and a conv window).
+Arithmetic follows the reference: float32 norms with ``rsqrt(var + eps)``
+of the biased variance, masked scores set to -1e30 before the softmax,
+tanh-approximate GELU (``jax.nn.gelu``'s default), a float32 router and
+SSM state, and the reference's casts in each decode layer.  The decode
+layers write the new token's entries into the caller's cache in place.
 """
 
 from __future__ import annotations
@@ -176,6 +182,79 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return out.reshape(B, S, H * hd) @ p["wo"]
 
 
+def _sqrt32(n: int, device) -> torch.Tensor:
+    """sqrt(n) rounded to float32, as a 0-d tensor on ``device``: dividing
+    by a tensor divides, where CUDA multiplies by the reciprocal of a
+    Python scalar divisor."""
+    return torch.full((), float(np.sqrt(np.float32(n))), dtype=torch.float32,
+                      device=device)
+
+
+def _ring(pos: torch.Tensor, Sc: int, window: int = 0):
+    """The slot (a 1-element index) that ``pos`` writes in a cache ring of
+    ``Sc`` entries, and the entries the query at ``pos`` may see: slot j
+    holds position pj = pos - ((pos - j) mod Sc), unwritten while pj < 0;
+    a window shorter than the ring also hides pj <= pos - window.  All on
+    ``pos``'s device, with no host sync."""
+    pj = pos - torch.remainder(pos - torch.arange(Sc, device=pos.device), Sc)
+    valid = pj >= 0
+    if window > 0 and Sc > window:
+        valid &= pj > pos - window
+    return torch.remainder(pos, Sc).reshape(1).long(), valid
+
+
+def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     pos: torch.Tensor, cache: dict, *, window: int = 0):
+    """One-token GQA decode against a (ring-buffered, for a sliding
+    window) KV cache.  x: (B, 1, D); pos: 0-d tensor, the position of this
+    token; cache ``k``/``v``: (B, Sc, Hk, hd), Sc the window for SWA layers
+    and max_seq otherwise.  Keys are stored rotated.  The new key and
+    value are written into ``cache`` in place (the reference returns an
+    updated copy).  Returns (out (B, 1, D), cache)."""
+    B = x.shape[0]
+    H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    ck, cv = cache["k"], cache["v"]
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.attn_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, 1, H, hd)
+    k = k.reshape(B, 1, Hk, hd)
+    v = v.reshape(B, 1, Hk, hd)
+    if cfg.pos_kind in ("rope", "mrope"):
+        # M-RoPE: the reference gives a text token pos on all three rows
+        cos, sin = rope_cos_sin(
+            cfg, pos.expand((3, B, 1) if cfg.pos_kind == "mrope" else (B, 1)), hd)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    slot, valid = _ring(pos, ck.shape[1], window)
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cv.index_copy_(1, slot, v.to(cv.dtype))
+    qg = q.reshape(B, Hk, H // Hk, hd)
+    scores = torch.einsum("bkgh,btkh->bkgt", qg, ck.to(q.dtype))
+    scores = scores.to(torch.float32) / _sqrt32(hd, x.device)
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+    out = torch.einsum("bkgt,btkh->bkgh", probs, cv)
+    return out.reshape(B, 1, H * hd) @ p["wo"], cache
+
+
+def cross_attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                           cache: dict) -> torch.Tensor:
+    """One-token cross-attention against the encoder's cached ``xk``/``xv``
+    (B, Te, Hk, hd): no rotary, no mask and, as in the reference, no
+    query bias.  Returns (B, 1, D)."""
+    B = x.shape[0]
+    H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    qg = (x @ p["wq"]).reshape(B, Hk, H // Hk, hd)
+    scores = torch.einsum("bkgh,btkh->bkgt", qg, cache["xk"].to(qg.dtype))
+    scores = scores.to(torch.float32) / _sqrt32(hd, x.device)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgt,btkh->bkgh", probs, cache["xv"].to(x.dtype))
+    return out.reshape(B, 1, H * hd) @ p["wo"]
+
+
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V3 Multi-head Latent Attention)
 # ---------------------------------------------------------------------------
@@ -202,6 +281,40 @@ def mla_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     out = _attend_chunked(q_full, k_full, v, causal=True, window=0,
                           q_offset=0, num_kv=H)
     return out.reshape(B, S, H * vdim) @ p["wo"]
+
+
+def mla_attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                         pos: torch.Tensor, cache: dict):
+    """One-token MLA decode in the absorbed form: the cache holds only the
+    kv latent ``ckv`` (B, Sc, kv_lora_rank) and the rotated rotary key
+    ``kpe`` (B, Sc, qk_rope_dim); ``W_uk`` is folded into the query and
+    ``W_uv`` applied after the softmax, whose scale is sqrt(nope + rdim).
+    The new entries are written into ``cache`` in place.  Returns
+    (out (B, 1, D), cache)."""
+    B = x.shape[0]
+    H = cfg.num_heads
+    nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    q = ((x @ p["w_dq"]) @ p["w_uq"]).reshape(B, H, nope + rdim)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    ckv_t = x @ p["w_dkv"]                                   # (B,1,kvr)
+    kpe_t = (x @ p["w_kr"]).reshape(B, 1, 1, rdim)
+    cos, sin = rope_cos_sin(cfg, pos.expand(B, 1), rdim)
+    q_pe = apply_rope(q_pe.reshape(B, 1, H, rdim), cos, sin).reshape(B, H, rdim)
+    kpe_t = apply_rope(kpe_t, cos, sin).reshape(B, 1, rdim)
+    slot, valid = _ring(pos, ckv.shape[1])
+    ckv.index_copy_(1, slot, ckv_t.to(ckv.dtype))
+    kpe.index_copy_(1, slot, kpe_t.to(kpe.dtype))
+    q_tilde = torch.einsum("bhn,rhn->bhr", q_nope, p["w_uk"].reshape(kvr, H, nope))
+    scores = (torch.einsum("bhr,btr->bht", q_tilde, ckv.to(q_tilde.dtype))
+              + torch.einsum("bhr,btr->bht", q_pe, kpe.to(q_pe.dtype)))
+    scores = scores.to(torch.float32) / _sqrt32(nope + rdim, x.device)
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    attn_c = torch.einsum("bht,btr->bhr", probs, ckv.to(x.dtype))
+    out = torch.einsum("bhr,rhv->bhv", attn_c, p["w_uv"].reshape(kvr, H, vdim))
+    return out.reshape(B, 1, H * vdim) @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------
@@ -330,3 +443,28 @@ def mamba(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     y = (torch.cat(ys, dim=1) + u.to(torch.float32) * p["d_skip"]).to(x.dtype)
     y = y * F.silu(z)
     return y @ p["out_proj"]
+
+
+def mamba_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: dict):
+    """One Mamba-1 step.  x: (B, 1, D) or (B, D); cache ``h`` (B, di, ds)
+    float32 and ``conv`` (B, ssm_conv - 1, di), the last inputs of the
+    causal conv, both updated in place.  Returns (out (B, 1, D), cache)."""
+    B = x.shape[0]
+    di, ds, dtr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    u = (x @ p["wx"]).reshape(B, di)
+    z = (x @ p["wz"]).reshape(B, di)
+    win = torch.cat([cache["conv"], u[:, None]], dim=1)      # (B,kw,di)
+    u = F.silu(torch.einsum("bkd,kd->bd", win, p["conv_w"]) + p["conv_b"])
+    xdb = u @ p["x_proj"]
+    dt = F.softplus(xdb[..., :dtr] @ p["dt_proj"] + p["dt_bias"])
+    Bs, Cs = xdb[..., dtr:dtr + ds], xdb[..., dtr + ds:]
+    A = -torch.exp(p["a_log"].to(torch.float32))
+    a = torch.exp(dt[..., None].to(torch.float32) * A)       # (B,di,ds)
+    hb = dt[..., None] * Bs[:, None, :] * u[..., None]
+    h = a * cache["h"] + hb.to(torch.float32)
+    y = torch.einsum("bds,bs->bd", h, Cs.to(torch.float32))
+    y = (y + u.to(torch.float32) * p["d_skip"]).to(x.dtype)
+    y = y * F.silu(z)
+    cache["h"].copy_(h)
+    cache["conv"].copy_(win[:, 1:])
+    return (y @ p["out_proj"])[:, None, :], cache

@@ -1,5 +1,5 @@
 """The model of every assigned family: parameter shapes, init, forward and
-loss (the training path).
+loss (the training path), and the cached decode (the serving path).
 
 Counterpart of ``repro/models/model.py``.  Parameters are a flat
 ``dict[str, Tensor]`` keyed by the reference's "/"-joined leaf paths
@@ -7,9 +7,15 @@ Counterpart of ``repro/models/model.py``.  Parameters are a flat
 jax's flatten order, with each stack of blocks over depth as ``(L, ...)``
 tensors exactly as the reference's ``param_shapes`` makes them: the
 sketch operators are per leaf, and a leaf is the whole stack.  The forward
-pass loops over a stack in Python where the reference scans it.  The
-reference's cached decode (``init_cache``, ``encode_for_decode``,
-``decode_step``) waits for ROADMAP A-10 step 3.
+pass loops over a stack in Python where the reference scans it.
+
+The decode cache has the same form: a flat dict keyed by the reference's
+cache paths (``layers/l0/k`` of shape ``(n_blocks, B, Sc, Hk, hd)``,
+``dense_layers/...`` for DeepSeek's leading dense blocks; ``ckv``/``kpe``
+for MLA, ``h``/``conv`` for Mamba, ``xk``/``xv`` for cross-attention).
+``decode_step`` runs one token through every block, writing each layer's
+new entries into the cache in place, and ``encode_for_decode`` fills the
+cross-attention caches from the audio encoder.
 """
 
 from __future__ import annotations
@@ -306,6 +312,11 @@ def forward(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]
     return L.apply_norm(cfg, _sub(params, "final_norm/"), x), aux
 
 
+def _logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    """Logits over the padded vocabulary (the tied embedding or the head)."""
+    return h @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+
+
 def _ce_loss_chunked(cfg: ModelConfig, params: Params, h: torch.Tensor,
                      labels: torch.Tensor, mask: torch.Tensor,
                      head_name: str = "lm_head") -> torch.Tensor:
@@ -348,3 +359,148 @@ def loss_fn(cfg: ModelConfig, params: Params,
         loss = loss + cfg.mtp_weight * _ce_loss_chunked(
             cfg, params, ht, labels2, mask2, head_name="mtp_head")
     return loss + aux
+
+
+# ---------------------------------------------------------------------------
+# decode (serving)
+# ---------------------------------------------------------------------------
+
+def _cache_shapes_block(cfg: ModelConfig, pattern, B: int, max_seq: int,
+                        cross: bool) -> dict:
+    """One block's cache shapes by path (``l0/k``, ...): an attention
+    layer keeps ``min(max_seq, sliding_window)`` slots (a ring) or
+    max_seq, MLA its latent and rotary key, cross-attention the encoder's
+    ``encoder_seq`` keys and values, Mamba its state and conv window."""
+    Hk, hd = cfg.num_kv_heads, cfg.hd
+    out = {}
+    for i, (mixer, _) in enumerate(pattern):
+        if mixer == "attn":
+            if cfg.mla:
+                out[f"l{i}/ckv"] = (B, max_seq, cfg.kv_lora_rank)
+                out[f"l{i}/kpe"] = (B, max_seq, cfg.qk_rope_dim)
+            else:
+                sc = min(max_seq, cfg.sliding_window) if cfg.sliding_window \
+                    else max_seq
+                out[f"l{i}/k"] = (B, sc, Hk, hd)
+                out[f"l{i}/v"] = (B, sc, Hk, hd)
+            if cross:
+                out[f"l{i}/xk"] = (B, cfg.encoder_seq, Hk, hd)
+                out[f"l{i}/xv"] = (B, cfg.encoder_seq, Hk, hd)
+        else:
+            out[f"l{i}/h"] = (B, cfg.d_inner, cfg.ssm_state)
+            out[f"l{i}/conv"] = (B, cfg.ssm_conv - 1, cfg.d_inner)
+    return out
+
+
+def cache_shapes(cfg: ModelConfig, B: int, max_seq: int) -> dict[str, tuple[int, ...]]:
+    """Cache path -> shape, each stack with its leading depth axis, in
+    jax's flatten order."""
+    n_blocks, pattern = cfg.scan_blocks()
+    shapes = {f"layers/{k}": (n_blocks,) + s for k, s in _cache_shapes_block(
+        cfg, pattern, B, max_seq, cfg.cross_attention).items()}
+    if cfg.first_dense_layers:
+        shapes.update({f"dense_layers/{k}": (cfg.first_dense_layers,) + s
+                       for k, s in _cache_shapes_block(
+                           cfg, DENSE, B, max_seq, False).items()})
+    return {k: shapes[k] for k in sorted(shapes, key=lambda p: p.split("/"))}
+
+
+def _cache_dtype(cfg: ModelConfig, path: str) -> torch.dtype:
+    """The reference's rule, a suffix match: a path ending in ``h`` (the
+    Mamba state) is float32, every other entry ``cfg.dtype``."""
+    return torch.float32 if path.endswith(("h",)) else cfg.dtype
+
+
+def init_cache(cfg: ModelConfig, B: int, max_seq: int,
+               device="cuda") -> dict[str, torch.Tensor]:
+    """A zero cache for ``B`` sequences of up to ``max_seq`` positions, on
+    ``device`` (CUDA unless the caller asks for another)."""
+    return {path: torch.zeros(shape, dtype=_cache_dtype(cfg, path), device=device)
+            for path, shape in cache_shapes(cfg, B, max_seq).items()}
+
+
+def _decode_block(cfg: ModelConfig, pattern, blk: Params, cache_blk: dict,
+                  x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One token through one block (one depth slice of a stack); the
+    layers write their entries into ``cache_blk``'s views in place."""
+    for i, (mixer, mlp_kind) in enumerate(pattern):
+        sub, csub = _sub(blk, f"l{i}/"), _sub(cache_blk, f"l{i}/")
+        if mixer == "attn":
+            p = _sub(sub, "attn/")
+            h = L.apply_norm(cfg, _sub(p, "ln/"), x)
+            if cfg.mla:
+                h, _ = L.mla_attention_decode(cfg, p, h, pos, csub)
+            else:
+                h, _ = L.attention_decode(cfg, p, h, pos, csub,
+                                          window=cfg.sliding_window)
+            x = x + h
+            xp = _sub(sub, "xattn/")
+            if "xk" in csub and xp:
+                h = L.apply_norm(cfg, _sub(xp, "ln/"), x)
+                x = x + L.cross_attention_decode(cfg, xp, h, csub)
+        else:
+            p = _sub(sub, "mamba/")
+            h, _ = L.mamba_decode(cfg, p, L.apply_norm(cfg, _sub(p, "ln/"), x), csub)
+            x = x + h
+        if mlp_kind == "dense":
+            p = _sub(sub, "mlp/")
+            x = x + L.mlp(cfg, p, L.apply_norm(cfg, _sub(p, "ln/"), x))
+        elif mlp_kind == "moe":
+            p = _sub(sub, "moe/")
+            x = x + L.moe(cfg, p, L.apply_norm(cfg, _sub(p, "ln/"), x))[0]
+    return x
+
+
+def _decode_blocks(cfg: ModelConfig, pattern, params: Params, cache: dict,
+                   prefix: str, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """One token through every block of the stack under ``prefix``."""
+    stack, cstack = _sub(params, prefix), _sub(cache, prefix)
+    for layer in range(next(iter(stack.values())).shape[0]):
+        x = _decode_block(cfg, pattern, {k: v[layer] for k, v in stack.items()},
+                          {k: v[layer] for k, v in cstack.items()}, x, pos)
+    return x
+
+
+@torch.no_grad()
+def encode_for_decode(cfg: ModelConfig, params: Params, cache: dict,
+                      audio_embeds: torch.Tensor) -> dict:
+    """Run the encoder once, bidirectionally, and fill every decoder
+    block's cross-attention cache: ``xk``/``xv`` = enc_out @ wk / wv, with
+    no bias, as the reference does (Whisper-style serving).  Writes into
+    ``cache`` in place and returns it."""
+    B, Te, _ = audio_embeds.shape
+    dev = audio_embeds.device
+    e = audio_embeds + L.sinusoidal_embed(
+        torch.arange(Te, device=dev), cfg.d_model)[None].to(audio_embeds.dtype)
+    e, _ = _run_blocks(cfg, DENSE, params, "enc_layers/", e,
+                       _positions_for(cfg, B, Te, dev), bidirectional=True)
+    enc_out = L.apply_norm(cfg, _sub(params, "enc_norm/"), e)
+    Hk, hd = cfg.num_kv_heads, cfg.hd
+    for path, c in cache.items():
+        head, _, leaf = path.rpartition("/")
+        if leaf in ("xk", "xv"):
+            w = params[f"{head}/xattn/w{leaf[1]}"]           # (n_blocks, D, Hk*hd)
+            for layer in range(c.shape[0]):
+                c[layer].copy_((enc_out @ w[layer]).reshape(B, Te, Hk, hd))
+    return cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: Params, cache: dict,
+                tokens: torch.Tensor, pos: torch.Tensor
+                ) -> tuple[torch.Tensor, dict]:
+    """One-token decode.  tokens: (B, 1); pos: 0-d integer tensor on the
+    cache's device, the position to fill (kept on the device: no host
+    sync).  Unlike the reference, which returns an updated copy, the
+    caller's ``cache`` is updated in place, and returned.  Returns
+    (logits (B, vocab_size), cache); the logits are the padded
+    vocabulary's first ``vocab_size`` columns."""
+    n_blocks, pattern = cfg.scan_blocks()
+    x = params["embed"][tokens]                              # (B,1,D)
+    if cfg.pos_kind == "sinusoidal":
+        x = x + L.sinusoidal_embed(pos[None], cfg.d_model)[None].to(x.dtype)
+    if cfg.first_dense_layers:
+        x = _decode_blocks(cfg, DENSE, params, cache, "dense_layers/", x, pos)
+    x = _decode_blocks(cfg, pattern, params, cache, "layers/", x, pos)
+    x = L.apply_norm(cfg, _sub(params, "final_norm/"), x)
+    return _logits(cfg, params, x)[:, 0, :cfg.vocab_size], cache

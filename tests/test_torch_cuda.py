@@ -789,3 +789,56 @@ def test_hvp_on_card_matches_cpu():
         hv[dev] = mv(v.to(dev)).cpu()
     torch.testing.assert_close(hv["cuda"], hv["cpu"], rtol=1e-3,
                                atol=1e-4 * float(hv["cpu"].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_on_card_matches_cpu(arch):
+    """Each architecture's SMOKE decode, teacher-forced for 24 steps at
+    max_seq 32 (h2o-danube's 16-slot ring wraps), on the card against the
+    CPU from the same weights (TF32 off): every step's logits and the final
+    caches within chip_smoke phase 3's tolerance (atol 2e-3, rtol 1e-3)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.model import encode_for_decode
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen)
+    audio = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen) * 0.02
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        cache = init_cache(cfg, 2, 32, dev)
+        if cfg.encoder_layers:
+            cache = encode_for_decode(cfg, params, cache, audio.to(dev))
+        logits = []
+        for t in range(24):
+            lg, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1].to(dev),
+                                    torch.tensor(t, device=dev))
+            logits.append(lg.cpu())
+        out[dev] = torch.stack(logits), {k: v.cpu() for k, v in cache.items()}
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-3, atol=2e-3)
+    for k, want in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], want, rtol=1e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_serve_example_on_card_matches_cpu():
+    """``serve.example()`` from the same weights: each greedy token on the
+    card equals the CPU's up to the first call whose top-2 margin on the
+    CPU is within twice the logits' tolerance (2e-3)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch import serve
+    out = {dev: serve.example(dev, params=init_params(
+        serve.EXAMPLE, torch.Generator().manual_seed(0), dev), keep_logits=True)
+        for dev in ("cpu", "cuda")}
+    lc, lg = out["cpu"]["all_logits"], out["cuda"]["all_logits"].cpu()
+    top2 = lc.topk(2, dim=-1).values
+    close = ((top2[..., 0] - top2[..., 1]) <= 4e-3).any(dim=-1)
+    # calls before the first close one see the same tokens on both devices
+    calls = int(close.float().argmax()) if bool(close.any()) else lc.shape[0]
+    torch.testing.assert_close(lg[:calls + 1], lc[:calls + 1], rtol=1e-3, atol=2e-3)
+    assert torch.equal(out["cuda"]["tokens"][:, :calls + 1].cpu(),
+                       out["cpu"]["tokens"][:, :calls + 1])
