@@ -111,21 +111,40 @@ Phases (any failed check or exception exits nonzero):
    over its 1,500 frames first, ``xk`` against ``enc_out @ wk``); (c) all
    twelve SMOKE archs' decode teacher-forced for 24 steps at max_seq 32,
    card against CPU (logits and caches within phase 3's tolerance), and
-   ``serve.example()``'s greedy tokens card against CPU.
+   ``serve.example()``'s greedy tokens card against CPU;
+13. the mesh on ``torch.distributed`` (``launch/mesh.py``, ``launch/
+   train.py``): four ranks sharing the card through gloo (NCCL refuses
+   two ranks on one device), spawned after the kernels are built; (a)
+   three SAFL rounds of bert_100m SMOKE in each of ``cross_device`` on
+   (data 2, model 2), ``cross_device_dp`` on (2, 2) and ``cross_silo`` on
+   (pod 2, data 2, model 1), one FedOPT run and one under a cohort of 1 of
+   2, each against four CPU ranks within phase 3's tolerance, and
+   ``run_mesh_scan`` bitwise ``run_mesh_host_loop``; (b) three bert_100m
+   rounds at full width and depth on (data 2, model 2), G = 2, K = 2, 8 x
+   128 tokens a client, vocabulary cut to 4,096: B1 at G = 1 over each
+   rank's 66,046,464-coordinate shard in every round on every rank,
+   finite losses, uplink bits 2 clients x 2 shards x 1,321,033 x 32,
+   round 1's params gathered to rank 0 against a one-process composition
+   of the same shard-local sketch on the card, each round's ms on rank 0,
+   a breakdown of a round (gather, ``client_delta``,
+   ``derive_round_params``, sketch, ``all_reduce``, desk,
+   ``apply_update``) and every rank's peak memory.
 
 Phases 4, 5, 6, 8b and 11b end with a breakdown of one round's time by step,
 and check each round's uplink bits (per-client payload times the
 cohort).
 
 The launch counts of the kernels are set to 0 just before phases 4, 5, 6,
-8b, 9b, 10b and 11b (each run) and the Gaussian full-width run, and read
+8b, 9b, 10b, 11b (each run) and 13b and the Gaussian full-width run, and read
 just after each; the ``kernels`` line has one entry per kernel and path
 (the count-sketch's main-path entry, timed at the uplink's shape, counts
 phases 4 and 6 and FetchSGD's uplink in 8b; its FetchSGD re-sketch entry,
 timed at G = 1, counts the re-sketch's calls in 8b; its streamed-chunk
 entry, timed at G = 2, counts 9b's calls; 10b's are added to the main
 path's; the entries at vit_base_86m's and llama3.2-1b's uplinks, timed at
-G = 5 in phase 2, count their models' rounds in 11b).
+G = 5 in phase 2, count their models' rounds in 11b; the mesh uplink's
+entry, timed at G = 1 over a rank's shard, counts 13b's calls, set to 0
+in each rank just before and summed over the ranks).
 The last lines are a
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": ...}``.  Needs one CUDA card; exits nonzero
@@ -148,6 +167,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -160,6 +180,7 @@ from repro_torch.configs import (ARCHS, bert_100m, get_config,  # noqa: E402
 from repro_torch.core import baselines as baselines_module  # noqa: E402
 from repro_torch.core import clipped as clipped_module  # noqa: E402
 from repro_torch.core import safl as safl_module  # noqa: E402
+from repro_torch.core import adaptive as adaptive_module  # noqa: E402
 from repro_torch.core.adaptive import AdaConfig  # noqa: E402
 from repro_torch.core.baselines import (BaselineConfig,  # noqa: E402
                                         baseline_round, init_baseline_state,
@@ -169,7 +190,9 @@ from repro_torch.core.clipped import (ClippedSAFLConfig,  # noqa: E402
 from repro_torch.core.intrinsic_dim import (intrinsic_dimension,  # noqa: E402
                                             make_hvp)
 from repro_torch.core.packed import (derive_round_params,  # noqa: E402
-                                     make_packing_plan)
+                                     desk_flat, make_packing_plan,
+                                     make_sharded_packing_plan,
+                                     sk_packed_clients, unpack_tree)
 from repro_torch.core.safl import (SAFLConfig, fedopt_round,  # noqa: E402
                                    init_safl, safl_round,
                                    uplink_bits_per_round)
@@ -194,7 +217,10 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.launch import heavy_tail, serve  # noqa: E402
 from repro_torch.launch import sketch_size_sweep  # noqa: E402
 from repro_torch.launch import supervisor as supervisor_module  # noqa: E402
+from repro_torch.launch import train as mesh_train  # noqa: E402
 from repro_torch.launch import train_lm  # noqa: E402
+from repro_torch.launch.mesh import (Mesh, choose_backend,  # noqa: E402
+                                     make_mesh, spawn)
 from repro_torch.launch.driver import (COUNTER_KEYS,  # noqa: E402
                                        HISTORY_KEYS, run_scan)
 from repro_torch.launch.supervisor import (SupervisorConfig,  # noqa: E402
@@ -202,7 +228,9 @@ from repro_torch.launch.supervisor import (SupervisorConfig,  # noqa: E402
                                            run_supervised)
 from repro_torch.models import layers as layers_module  # noqa: E402
 from repro_torch.models import model as model_module  # noqa: E402
+from repro_torch.models import sharding  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.models.sharding import gather_tree, local_shard  # noqa: E402
 from repro_torch.models.model import (_cache_dtype, _logits,  # noqa: E402
                                      cache_shapes, decode_step, forward,
                                      init_params, loss_fn, param_shapes)
@@ -609,6 +637,18 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
               f"library_ms (index_add_) {lib_ms:.3f}; bound_ms {bms:.3f} ({by})")
         del h, zeros
     del x
+    torch.cuda.empty_cache()
+
+    # B1 at the mesh uplink (phase 13b): each rank of the (data 2, model 2)
+    # grid sketches its client's model shard, G = 1 over the shard-local
+    # plan, with a real round's hash
+    plan = mesh_plan(bert_100m.CONFIG)
+    h = derive_round_params(plan, prng.fold_in(prng.key(0), 0), dev)["h"]
+    x = torch.randn((1, plan.d_total), generator=gen, device=dev) * 1e-3
+    entries.append(uplink_entry("countsketch_mesh", "mesh uplink", x, h,
+                                plan.b_total))
+    del x, h
+    torch.cuda.empty_cache()
 
     # the SRHT phase (the lm25m plan) with a real round's operator: B1 as
     # the desk scatter of each live op's b payload slots into n2 slots, B2
@@ -2557,6 +2597,297 @@ def phase_decode_smoke() -> None:
     check(same and ok_logits, "serve.example: card and CPU differ")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the mesh on torch.distributed (ROADMAP A-11 step 1)
+# ---------------------------------------------------------------------------
+
+MESH_GRID = ((2, 2), ("data", "model"))
+MESH_SILO = ((2, 2, 1), ("pod", "data", "model"))
+MESH_CLIENTS = 2            # one client a data index of the grid, a pod of the silo
+MESH_ROUNDS = 3
+# (name, mesh, topology, FedOPT, cohort size or None) of 13a
+MESH_SMOKE_CASES = (
+    ("cross_device", MESH_GRID, "cross_device", False, None),
+    ("cross_device_dp", MESH_GRID, "cross_device_dp", False, None),
+    ("cross_silo", MESH_SILO, "cross_silo", False, None),
+    ("fedopt", MESH_GRID, "cross_device", True, None),
+    ("cohort 1 of 2", MESH_GRID, "cross_device", False, 1))
+MESH_SMOKE_SKETCH = dataclasses.replace(MAIN_SKETCH, ratio=0.05, min_b=16)
+# the calls of a mesh round on a rank (names in launch/train.py), timed one
+# by one in 13b's breakdown, with their labels
+MESH_STEPS = (("gather_tree", "gather"), ("client_deltas", "client_delta"),
+              ("derive_round_params", "derive_round_params"),
+              ("sk_packed_clients", "sketch"), ("_collect", "all_reduce"),
+              ("desk_flat", "desk"), ("apply_update", "apply_update"))
+
+
+def mesh_plan(model: ModelConfig):
+    """The shard-local plan of a rank of the (data 2, model 2) grid."""
+    abstract, pspecs = mesh_train._mesh_pspecs(model, "cross_device")
+    return make_sharded_packing_plan(MAIN_SKETCH, abstract, pspecs,
+                                     dict(zip(MESH_GRID[1], MESH_GRID[0])))
+
+
+def mesh_data(model: ModelConfig, full: bool) -> LMDataConfig:
+    base = full_data(min(model.vocab_size, 4096)) if full else smoke_data()
+    return dataclasses.replace(base, num_clients=MESH_CLIENTS)
+
+
+def mesh_run(mesh, model: ModelConfig, topology: str, sketch: SketchConfig,
+             data: LMDataConfig, rounds: int, *, fedopt: bool = False,
+             cohort=None, host_loop: bool = False, **scan_kw):
+    """``rounds`` mesh rounds on this rank from the weights of seed 0 under
+    ``prng.key(0)``: ``run_mesh_scan`` (``scan_kw``: chunk_size, on_chunk),
+    or the host loop of the per-round step.  Returns (local params, local
+    state, history, pspecs)."""
+    cfg = safl_cfg(SketchConfig(kind="none") if fedopt else sketch)
+    smp = mesh_train.mesh_sampler(
+        mesh, BigramLMData(data).device_sampler(batch_per_client=8,
+                                                 local_steps=2), topology)
+    _, pspecs = mesh_train._mesh_pspecs(model, topology)
+    params = local_shard(mesh, init_params(model, torch.Generator().manual_seed(0),
+                                           device=mesh.device), pspecs)
+    state = init_safl(cfg, params)
+    policy = (None if cohort is None else UniformParticipation(
+        data.num_clients, frac=cohort / data.num_clients, seed=123))
+    key = prng.key(0)
+    if host_loop:
+        step, _ = mesh_train.make_safl_train_step(model, cfg, mesh, topology,
+                                                  participation=policy)
+        out = mesh_train.run_mesh_host_loop(step, smp, params, state,
+                                            rounds=rounds, key=key,
+                                            participation=policy)
+    else:
+        out = mesh_train.run_mesh_scan(model, cfg, mesh, smp, params, state,
+                                       rounds=rounds, key=key, topology=topology,
+                                       participation=policy, **scan_kw)
+    return (*out, pspecs)
+
+
+def _every_rank(mesh, values: list[float]) -> list[list[float]]:
+    """Each rank's ``values``, in rank order, on every rank (through the
+    mesh's device: NCCL takes no CPU tensor)."""
+    mine = torch.tensor(values, dtype=torch.float64, device=mesh.device)
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, mine)
+    return [p.tolist() for p in parts]
+
+
+def mesh_smoke(mesh, device: str) -> dict:
+    """13a on one rank: three rounds of each case at bert_100m SMOKE on
+    ``device``; rank 0 gets every case's gathered params and losses, and
+    whether the scanned driver equals its host loop on every rank
+    (cross_device)."""
+    meshes = {MESH_GRID[1]: mesh, MESH_SILO[1]: make_mesh(*MESH_SILO, device=device)}
+    out, local = {}, {}
+    for name, (_, axes), topology, fedopt, cohort in MESH_SMOKE_CASES:
+        m = meshes[axes]
+        params, state, hist, pspecs = mesh_run(
+            m, bert_100m.SMOKE, topology, MESH_SMOKE_SKETCH,
+            mesh_data(bert_100m.SMOKE, False),
+            MESH_ROUNDS, fedopt=fedopt, cohort=cohort)
+        local[name] = (params, state, hist)
+        out[name] = ({k: v.cpu() for k, v in gather_tree(m, params, pspecs).items()},
+                     None, hist)
+    p, s, h, _ = mesh_run(mesh, bert_100m.SMOKE, "cross_device",
+                          MESH_SMOKE_SKETCH, mesh_data(bert_100m.SMOKE, False),
+                          MESH_ROUNDS, host_loop=True)
+    p0, s0, h0 = local["cross_device"]
+    same = (np.array_equal(h["loss"], h0["loss"])
+            and all(torch.equal(p[k], p0[k]) for k in p)
+            and all(torch.equal(s[m][k], s0[m][k]) for m in ("m", "v", "vhat")
+                    for k in p))
+    out["scan_equals_host_loop"] = min(r[0] for r in _every_rank(mesh, [float(same)])) == 1.0
+    return out
+
+
+def mesh_full(mesh, model: ModelConfig) -> dict:
+    """13b on one rank: three rounds of ``model`` (bert_100m at full width), chunk 1,
+    B1's count set to 0 just before; rank 0 gets the losses, its round ms,
+    round 1's params gathered, every rank's B1 launches and peak, the plan's
+    sizes, and a breakdown of two more rounds."""
+    topology = "cross_device"
+    pspecs = mesh_train._mesh_pspecs(model, topology)[1]
+    plan = mesh_train._mesh_plan(model, safl_cfg(MAIN_SKETCH), mesh, topology)[2]
+    rounds_ms, params1 = [], {}
+    clock = {}
+
+    def per_round(t, params, state, hist):
+        torch.cuda.synchronize()
+        rounds_ms.append((time.perf_counter() - clock["t"]) * 1e3)
+        if t == 1:          # round 1's params, off the round's clock
+            full = gather_tree(mesh, params, pspecs)
+            if mesh.rank == 0:
+                params1.update({k: v.cpu() for k, v in full.items()})
+            del full
+            torch.cuda.synchronize()
+        clock["t"] = time.perf_counter()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cs.LAUNCHES.n = 0
+    clock["t"] = time.perf_counter()
+    _, _, hist, _ = mesh_run(mesh, model, topology, MAIN_SKETCH, mesh_data(model, True),
+                             MESH_ROUNDS, chunk_size=1, on_chunk=per_round)
+    torch.cuda.synchronize()
+    launches, peak = cs.LAUNCHES.n, peak_gib()
+
+    times: dict[str, float] = {}
+    rounds: list[dict] = []
+
+    def timed(label, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[label] = times.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    def breakdown_round(t, params, state, hist):
+        torch.cuda.synchronize()
+        rounds.append({**times, "round": (time.perf_counter() - clock["t"]) * 1e3})
+        times.clear()
+        clock["t"] = time.perf_counter()
+
+    saved = [(name, getattr(mesh_train, name)) for name, _ in MESH_STEPS]
+    for (name, fn), (_, label) in zip(saved, MESH_STEPS):
+        setattr(mesh_train, name, timed(label, fn))
+    try:
+        mesh_run(mesh, model, topology, MAIN_SKETCH, mesh_data(model, True), 2,
+                 chunk_size=1, on_chunk=breakdown_round)
+    finally:
+        for name, fn in saved:
+            setattr(mesh_train, name, fn)
+    return dict(loss=hist["loss"], rounds_ms=rounds_ms, params1=params1,
+                ranks=_every_rank(mesh, [launches, peak]), breakdown=rounds[1],
+                d_total=plan.d_total, b_total=plan.b_total,
+                b_bits=torch.empty((), dtype=MAIN_SKETCH.transport_dtype).element_size() * 8)
+
+
+def mesh_card_rank(mesh) -> dict:
+    """A rank of phase 13 on the card: 13a's card half, then 13b."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"smoke": mesh_smoke(mesh, "cuda"),
+            "full": mesh_full(mesh, bert_100m.CONFIG)}
+
+
+def mesh_cpu_rank(mesh) -> dict:
+    """A rank of 13a's CPU half."""
+    return mesh_smoke(mesh, "cpu")
+
+
+def mesh_composition(model: ModelConfig, device="cuda") -> dict:
+    """Round 1 of 13b composed in this one process on the card: both
+    clients' deltas on the whole weights, each model shard's slice through
+    the shard-local plan (B1 at G = 2), the mean, the desk into the shard's
+    block of the update, then AMSGrad on the whole tree."""
+    cfg = safl_cfg(MAIN_SKETCH)
+    sampler = BigramLMData(mesh_data(model, True)).device_sampler(
+        batch_per_client=8, local_steps=2)
+    batch = sampler.round_batch(0, device)
+    params = init_params(model, torch.Generator().manual_seed(0), device=device)
+    deltas, _ = safl_module.client_deltas(
+        cfg, lambda p, b: loss_fn(model, p, b), params, batch,
+        safl_module._f32(cfg.client_lr))
+    pspecs = mesh_train._mesh_pspecs(model, "cross_device")[1]
+    plan = mesh_plan(model)
+    rp = derive_round_params(plan, prng.fold_in(prng.key(0), 0), device)
+    update = {k: torch.empty(p.shape, device=device) for k, p in params.items()}
+    layout = Mesh(*MESH_GRID)
+    for m in range(layout.shape["model"]):
+        view = Mesh(layout.sizes, layout.axis_names,
+                    rank=layout.rank_of({"data": 0, "model": m}))
+        local = local_shard(view, deltas, {k: (None,) + s for k, s in pspecs.items()})
+        s = sk_packed_clients(plan, rp, local)
+        u = unpack_tree(plan, desk_flat(plan, rp, safl_module.masked_mean(s)),
+                        cast=False)
+        for k, v in u.items():
+            update[k][sharding._block(view, update[k].shape, pspecs[k])] = v
+    del deltas
+    new, _ = adaptive_module.apply_update(cfg.server, init_safl(cfg, params),
+                                          params, update)
+    return {k: v.cpu() for k, v in new.items()}
+
+
+def phase_mesh() -> int:
+    """Phase 13: (a) each topology, FedOPT and a cohort at SMOKE size on
+    four ranks on the card (sharing it through gloo, or a card each
+    through NCCL) against four CPU ranks, and the scanned driver against
+    its host loop on both; (b) three bert_100m
+    rounds at full width on (data 2, model 2) with their checks, round 1
+    against the one-process composition, the ranks' B1 launches and peaks,
+    and a breakdown.  Returns B1's launches in 13b, summed over the ranks."""
+    t0 = time.perf_counter()
+    world = math.prod(MESH_GRID[0])
+    shared = choose_backend(world, "cuda") == "gloo"
+    where = "sharing the card (gloo)" if shared else "a card each (NCCL)"
+    print(f"== phase 13a: the mesh at bert_100m SMOKE, {world} ranks {where} "
+          f"against {world} on the CPU ==")
+    torch.cuda.empty_cache()
+    card = spawn(mesh_card_rank, *MESH_GRID, device="cuda", timeout=900)
+    t1 = time.perf_counter()
+    cpu = spawn(mesh_cpu_rank, *MESH_GRID, device="cpu", timeout=900)
+    t2 = time.perf_counter()
+    print(f"phase 13: card ranks {t1 - t0:.1f} s (13a and 13b), CPU ranks "
+          f"{t2 - t1:.1f} s")
+    for name, *_ in MESH_SMOKE_CASES:
+        compare_card_cpu(f"mesh {name}", card["smoke"][name], cpu[name])
+    for dev, out in (("card", card["smoke"]), ("CPU", cpu)):
+        print(f"mesh cross_device on the {dev}: run_mesh_scan bitwise "
+              f"run_mesh_host_loop on every rank: {out['scan_equals_host_loop']}")
+        check(out["scan_equals_host_loop"],
+              f"mesh: the scanned driver differs from its host loop on the {dev}")
+
+    print(f"== phase 13b: bert_100m full width on (data 2, model 2), {world} "
+          f"ranks {where} ==")
+    full = card["full"]
+    n_shards = MESH_GRID[0][1]
+    bits = MESH_CLIENTS * n_shards * full["b_total"] * full["b_bits"]
+    print(f"mesh bert_100m: shard-local d_total {full['d_total']:,}, b_total "
+          f"{full['b_total']:,}; uplink bits a round {bits:,} ({MESH_CLIENTS} "
+          f"clients x {n_shards} model shards x b_total x {full['b_bits']})")
+    check((full["d_total"], full["b_total"]) == (66_046_464, 1_321_033),
+          f"mesh bert_100m: the shard-local plan is {full['d_total']}, "
+          f"{full['b_total']}, not the reference's 66,046,464, 1,321,033")
+    check(bits == 2 * 2 * 1_321_033 * 32, f"mesh bert_100m: uplink bits {bits}")
+    for t, (loss, ms) in enumerate(zip(full["loss"], full["rounds_ms"])):
+        print(f"mesh bert_100m round {t}: loss {loss:.5f}  rank 0 ms {ms:.1f}"
+              + ("  (with set-up)" if t == 0 else ""))
+        check(math.isfinite(float(loss)), "mesh bert_100m: loss not finite")
+    launches = [int(r[0]) for r in full["ranks"]]
+    peaks = [r[1] for r in full["ranks"]]
+    print(f"mesh bert_100m: B1 launches by rank {launches}; peak device memory "
+          f"by rank {', '.join(f'{p:.2f}' for p in peaks)} GiB (sum "
+          f"{sum(peaks):.2f} of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f})")
+    check(all(n == MESH_ROUNDS for n in launches),
+          f"mesh bert_100m: B1 not launched once a round on every rank: {launches}")
+    check(sum(peaks) < 75.0, f"mesh bert_100m: the ranks' peaks sum to {sum(peaks):.1f} GiB")
+    bd = full["breakdown"]
+    total = bd.pop("round")
+    bd["rest"] = total - sum(bd.values())
+    print(f"mesh bert_100m round breakdown on rank 0 (ms, round {total:.1f}, "
+          f"{world} ranks {where}): "
+          + ", ".join(f"{k} {v:.1f} ({100 * v / total:.0f}%)" for k, v in bd.items()))
+
+    want = mesh_composition(bert_100m.CONFIG)
+    got = full["params1"]
+    worst = max(float((got[k] - want[k]).abs().max()) for k in want)
+    outside = sum(int((~torch.isclose(got[k], want[k], rtol=TRAJ_RTOL,
+                                      atol=TRAJ_ATOL)).sum()) for k in want)
+    exact = all(torch.equal(got[k], want[k]) for k in want)
+    print(f"mesh bert_100m round 1 params (gathered to rank 0) against the "
+          f"one-process composition on the card: max abs diff {worst:.3e}, "
+          f"coordinates outside phase 3's tolerance {outside}, bitwise equal {exact}")
+    check(got.keys() == want.keys() and outside == 0,
+          "mesh bert_100m: round 1 differs from the one-process composition")
+    print(f"phase 13 {time.perf_counter() - t0:.1f} s")
+    return sum(launches)
+
+
 def print_cs_launches(name: str, n: dict[str, int]) -> None:
     print(f"{name}: countsketch route called {n['countsketch']} times, "
           f"{n['countsketch_device']} device launches (kernels and memsets), "
@@ -2655,6 +2986,8 @@ def main() -> int:
     print(f"phase 12: {time.perf_counter() - t12:.1f} s; the decode path launched "
           f"{sum(c.n for c in counts)} of the TPU kernels' counterparts (it reaches "
           f"none, as in the reference)")
+    torch.cuda.empty_cache()
+    by_name["countsketch_mesh"]["launches"] = phase_mesh()
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")

@@ -73,6 +73,46 @@ class PackingPlan:
         return all(op.raw for op in self.ops)
 
 
+def shard_local_abstract(tree: Mapping[str, Any], pspecs: Mapping[str, tuple],
+                         axis_sizes: Mapping[str, int]) -> dict[str, torch.Tensor]:
+    """A rank's local shard shapes of ``tree`` under ``pspecs``, as tensors
+    on the ``meta`` device (shape and dtype, no storage).
+
+    ``axis_sizes`` maps mesh axis name -> size (``mesh.shape``).  Dim i of
+    a leaf is the global dim divided by the product of the mesh axes
+    sharding it; every sharded dim must divide evenly."""
+    out = {}
+    for name, leaf in tree.items():
+        shape = tuple(leaf.shape)
+        # a spec may be shorter than the leaf rank (trailing dims implicitly
+        # replicated): pad with None so no dim is silently dropped
+        spec = tuple(pspecs[name]) + (None,) * (len(shape) - len(pspecs[name]))
+        dims = []
+        for d, e in zip(shape, spec):
+            axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+            sz = 1
+            for a in axes:
+                sz *= axis_sizes[a]
+            if d % sz:
+                raise ValueError(
+                    f"dim {d} of {shape} not divisible by mesh axes {axes} "
+                    f"(size {sz})")
+            dims.append(d // sz)
+        out[name] = torch.empty(dims, dtype=leaf.dtype, device="meta")
+    return out
+
+
+def make_sharded_packing_plan(cfg: SketchConfig, tree: Mapping[str, Any],
+                              pspecs: Mapping[str, tuple],
+                              axis_sizes: Mapping[str, int]) -> PackingPlan:
+    """PackingPlan over the SHARD-LOCAL slices of ``tree``: the mesh round
+    sketches each rank's local shard of every leaf (no gather of the
+    d-dim delta), so the packed layout comes from the local shapes.  Leaf
+    tags are the leaf indices, as in the per-leaf route of
+    ``launch.train.sharded_sketch_avg_desk``."""
+    return make_packing_plan(cfg, shard_local_abstract(tree, pspecs, axis_sizes))
+
+
 def make_packing_plan(cfg: SketchConfig, tree: Mapping[str, Any]) -> PackingPlan:
     """Lay out every leaf of ``tree`` (anything with ``.shape``/``.dtype``)
     into the packed input/payload buffers."""

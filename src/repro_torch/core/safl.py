@@ -26,6 +26,7 @@ import dataclasses
 from typing import Any, Callable, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import prng
 from repro_torch.core.adaptive import AdaConfig, apply_update, init_opt_state
@@ -82,6 +83,35 @@ def masked_mean(x: torch.Tensor, mask=None) -> torch.Tensor:
 def masked_mean_tree(tree: Tree, mask=None) -> dict[str, torch.Tensor]:
     """``masked_mean`` over every leaf (leaves have leading client axis G)."""
     return {k: masked_mean(x, mask) for k, x in tree.items()}
+
+
+def masked_psum_mean(x: torch.Tensor, w_loc: torch.Tensor, den,
+                     group=None) -> torch.Tensor:
+    """``masked_mean`` distributed over the ranks of a client process group.
+
+    ``x`` is a rank's ``(G_loc, ...)`` block of the client-major payload
+    and ``w_loc`` the matching ``(G_loc,)`` slice of the cohort weights.
+    The weighted local sum over the rank's client rows crosses ONE
+    ``all_reduce`` over ``group`` (plus the scalar weight sum when ``den``
+    is None), then divides.  Returns a ``(1, ...)`` row, the same on every
+    rank; ``group=None`` (no client axes) reduces nothing.
+
+    ``den=None`` divides by the global weight sum (the 0/1-mask cohort
+    mean); a static ``den`` is the Horvitz-Thompson denominator of a
+    weighted mask.  With an all-ones mask and one client row a rank this
+    is ``all_reduce(x) / n`` exactly: ``1.0 * x`` is exact, the row sum of
+    one row is the row, and the weight sum is the float n."""
+    w = w_loc.reshape((w_loc.shape[0],) + (1,) * (x.dim() - 1)).to(x.dtype)
+    sw = torch.sum(x * w, dim=0, keepdim=True)
+    if den is None:
+        wsum = torch.sum(w_loc).to(torch.float32)
+        if group is not None:
+            dist.all_reduce(sw, group=group)
+            dist.all_reduce(wsum, group=group)
+        return sw / torch.clamp(wsum, min=1.0).to(x.dtype)
+    if group is not None:
+        dist.all_reduce(sw, group=group)
+    return sw / float(den)
 
 
 def masked_where_tree(mask, new: Tree, old: Tree) -> Tree:

@@ -251,6 +251,27 @@ def desk_leaf(cfg: SketchConfig, key: prng.Key, s: torch.Tensor, n: int,
     return fn(cfg, key, s, n)
 
 
+SKETCH_CHUNK_NUMEL = 1 << 24    # leaves above this sketch per layer slice
+
+
+def sk_leaf_stacked(cfg: SketchConfig, key: prng.Key,
+                    rows: torch.Tensor) -> torch.Tensor:
+    """sk each row of ``rows`` (L, n) with the per-row operator
+    ``fold_in(key, j)`` -> (L, b): the layer-wise path for leaves whose
+    flat size would make one hash/sign temporary too large (one row's
+    temporaries at a time), shared by the mesh round's per-leaf route."""
+    return torch.stack([sk_leaf(cfg, prng.fold_in(key, j), rows[j])
+                        for j in range(rows.shape[0])])
+
+
+def desk_leaf_stacked(cfg: SketchConfig, key: prng.Key, s: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """Row-wise desk of ``s`` (L, b) back to (L, n): the adjoint of
+    ``sk_leaf_stacked`` under the same per-row ``fold_in(key, j)`` chain."""
+    return torch.stack([desk_leaf(cfg, prng.fold_in(key, j), s[j], n)
+                        for j in range(s.shape[0])])
+
+
 # ---------------------------------------------------------------------------
 # Tree-level sketching
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Device-resident federated batch sampling for the round driver.
 
-Counterpart of ``repro/data/device.py::DeviceBigramSampler`` and
-``DeviceGaussianClsSampler``.  The tokens
+Counterpart of ``repro/data/device.py::DeviceBigramSampler``,
+``DeviceGaussianClsSampler`` and ``ShardedSampler``.  The tokens
 of client ``c`` in round ``t`` are a pure function of ``(t, c, seed)``:
 the key is ``fold_in(fold_in(key(seed), t), c)``, split into a key for the
 first token and one per later position, exactly as the reference draws
@@ -17,6 +17,7 @@ over clients and sequences.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -51,22 +52,26 @@ class DeviceBigramSampler:
     def init_state(self, device="cuda") -> dict:
         return {"trans_cum": torch.as_tensor(self.trans_cum, device=device)}
 
-    def sample(self, state: dict, t: int) -> tuple[dict, dict]:
-        """Draw round ``t``'s batch: ``{"tokens": (G, K, mb, seq) int64}``."""
+    def sample(self, state: dict, t: int, start: int = 0,
+               stop: int | None = None) -> tuple[dict, dict]:
+        """Draw round ``t``'s batch: ``{"tokens": (G, K, mb, seq) int64}``,
+        or only the rows of clients ``[start, stop)``, bit for bit the
+        whole batch's rows."""
         cum = state["trans_cum"]
         device = cum.device
-        G, B, S = self.num_clients, self.batch_per_client, self.seq_len
+        stop = self.num_clients if stop is None else stop
+        G, B, S = stop - start, self.batch_per_client, self.seq_len
         V = self.vocab_size
         round_key = prng.fold_in(prng.key(self.seed), t)
         firsts, step_keys = [], []
-        for c in range(G):
+        for c in range(start, stop):
             k_first, k_seq = prng.split(prng.fold_in(round_key, c))
             firsts.append(prng.randint(k_first, (B,), 0, V, device))
             step_keys.extend(prng.split(k_seq, S - 1))
         u = prng.uniform_many(step_keys, (B,), device).reshape(G, S - 1, B)
         prev = torch.stack(firsts)                                 # (G, B)
         toks = [prev]
-        rows = torch.arange(G, device=device)[:, None]
+        rows = torch.arange(start, stop, device=device)[:, None]
         for s in range(S - 1):
             nxt = torch.sum(cum[rows, prev] < u[:, s, :, None], dim=-1)
             # a float cumsum can top out slightly below 1.0; clamp the
@@ -128,21 +133,25 @@ class DeviceGaussianClsSampler:
         x = centers[y] + prng.normal_many([k[1] for k in keys], (B, F), device)
         return x, y
 
-    def _keys(self, t: int) -> list:
+    def _keys(self, t: int, start: int = 0, stop: int | None = None) -> list:
         round_key = prng.fold_in(prng.key(self.seed), t)
+        stop = self.num_clients if stop is None else stop
         return [prng.split(prng.fold_in(round_key, c))
-                for c in range(self.num_clients)]
+                for c in range(start, stop)]
 
     def _shape(self, x, y) -> dict:
-        G, K = self.num_clients, self.local_steps
+        G, K = y.shape[0], self.local_steps
         mb = self.batch_per_client // K
         return {"x": x.reshape(G, K, mb, self.num_features),
                 "y": y.reshape(G, K, mb)}
 
-    def sample(self, state: dict, t: int) -> tuple[dict, dict]:
+    def sample(self, state: dict, t: int, start: int = 0,
+               stop: int | None = None) -> tuple[dict, dict]:
         """Draw round ``t``'s batch: x (G, K, mb, F) float32, y (G, K, mb)
-        int64."""
-        x, y = self._draw(state["centers"], state["label_cum"], self._keys(t))
+        int64; or only the rows of clients ``[start, stop)``, bit for bit
+        the whole batch's rows."""
+        x, y = self._draw(state["centers"], state["label_cum"][start:stop],
+                          self._keys(t, start, stop))
         return state, self._shape(x, y)
 
     def round_batch(self, t: int, device="cuda") -> dict:
@@ -157,3 +166,28 @@ class DeviceGaussianClsSampler:
                  for c, k in enumerate(self._keys(t))]
         x, y = (torch.cat(v) for v in zip(*draws))
         return {k: v.numpy() for k, v in self._shape(x, y).items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSampler:
+    """One mesh rank's view of a sampler with the ``init_state(device)/
+    sample(state, t)`` protocol: the rows ``[start, stop)`` of the client
+    axis of each batch, the clients this rank trains.
+
+    A client's rows depend only on ``(t, c, seed)``, so the base sampler
+    draws the rank's clients alone (``sample(state, t, start, stop)``), bit
+    for bit the rows of the whole batch, and the mesh trajectory stays
+    comparable to the single-host driver's.  Build
+    via ``launch.train.mesh_sampler``, which derives the rows from the
+    rank's client index (its row-major index over the client axes, the
+    order in which the reference's ``shard_map`` splits the client axis);
+    this class stays mesh-agnostic."""
+    base: Any
+    start: int
+    stop: int
+
+    def init_state(self, device="cuda") -> dict:
+        return self.base.init_state(device)
+
+    def sample(self, state: dict, t: int) -> tuple[dict, dict]:
+        return self.base.sample(state, t, self.start, self.stop)

@@ -14,6 +14,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -842,3 +843,54 @@ def test_serve_example_on_card_matches_cpu():
     torch.testing.assert_close(lg[:calls + 1], lc[:calls + 1], rtol=1e-3, atol=2e-3)
     assert torch.equal(out["cuda"]["tokens"][:, :calls + 1].cpu(),
                        out["cpu"]["tokens"][:, :calls + 1])
+
+
+def _two_ranks_on_the_card(mesh):
+    """One rank of the (data 2, model 1) mesh on the card: three SAFL rounds
+    through B1, scanned and host-looped; (B1 launches of this rank, losses,
+    both trajectories bitwise equal on every rank)."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as T
+    from repro_torch.models.sharding import local_shard
+    model = ModelConfig(name="tiny", arch_type="dense", num_layers=2, d_model=64,
+                        num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=128)
+    cfg = SAFLConfig(sketch=SketchConfig(kind="countsketch", ratio=0.05, min_b=16,
+                                         cs_hash="independent", use_kernels=True),
+                     server=AdaConfig(name="amsgrad", lr=0.01), client_lr=0.5,
+                     local_steps=2)
+    smp = T.mesh_sampler(mesh, BigramLMData(LMDataConfig(
+        vocab_size=128, seq_len=16, num_clients=2, alpha=0.05)).device_sampler(4, 2))
+    _, pspecs = T._mesh_pspecs(model, "cross_device")
+
+    def fresh():
+        p = local_shard(mesh, init_params(model, torch.Generator().manual_seed(0),
+                                          mesh.device), pspecs)
+        return p, init_safl(cfg, p)
+
+    cs.LAUNCHES.n = 0
+    p1, _, h1 = T.run_mesh_scan(model, cfg, mesh, smp, *fresh(), rounds=3,
+                                key=prng.key(1))
+    launches = cs.LAUNCHES.n
+    step, _ = T.make_safl_train_step(model, cfg, mesh)
+    p2, _, h2 = T.run_mesh_host_loop(step, smp, *fresh(), rounds=3, key=prng.key(1))
+    same = torch.tensor([float(all(torch.equal(p1[k], p2[k]) for k in p1)
+                               and (h1["loss"] == h2["loss"]).all())],
+                        device=mesh.device)
+    counts = torch.tensor([float(launches)], device=mesh.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    dist.all_reduce(counts, op=dist.ReduceOp.MIN)
+    return float(counts), h1["loss"], bool(same.item() == 1.0)
+
+
+@pytest.mark.cuda
+def test_mesh_two_ranks_on_the_card():
+    """``launch.mesh.spawn`` of two ranks on the card (gloo when they share
+    one card): B1 launched in every round on every rank, finite losses,
+    the scanned driver bitwise its host loop."""
+    _need_card()
+    from repro_torch.launch.mesh import spawn
+    fewest, losses, same = spawn(_two_ranks_on_the_card, (2, 1), ("data", "model"),
+                                 device="cuda", timeout=300)
+    assert fewest >= 3
+    assert np.isfinite(losses).all() and losses.shape == (3,)
+    assert same
