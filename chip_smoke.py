@@ -208,7 +208,7 @@ from repro_torch.fed import codec as codec_module  # noqa: E402
 from repro_torch.fed import faults as faults_module  # noqa: E402
 from repro_torch.fed import robust as robust_module  # noqa: E402
 from repro_torch.fed.codec import init_codec_state  # noqa: E402
-from repro_torch.fed.faults import BYZANTINE, NAN, OK  # noqa: E402
+from repro_torch.fed.faults import BYZANTINE, DROP, NAN, OK  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import countsketch as cs  # noqa: E402
 from repro_torch.kernels import fwht as fw  # noqa: E402
@@ -647,6 +647,14 @@ def phase_kernels(gen: torch.Generator) -> list[dict]:
     x = torch.randn((1, plan.d_total), generator=gen, device=dev) * 1e-3
     entries.append(uplink_entry("countsketch_mesh", "mesh uplink", x, h,
                                 plan.b_total))
+    del x
+    torch.cuda.empty_cache()
+    # the same shard at G = 4: a rank's four clients in 13d's guarded and
+    # buffered rounds
+    x = torch.randn((MESH_FULL_CLIENTS // 2, plan.d_total), generator=gen,
+                    device=dev) * 1e-3
+    entries.append(uplink_entry("countsketch_mesh_g4", "mesh uplink, 4 clients a rank",
+                                x, h, plan.b_total))
     del x, h
     torch.cuda.empty_cache()
 
@@ -2621,6 +2629,58 @@ MESH_STEPS = (("gather_tree", "gather"), ("client_deltas", "client_delta"),
               ("desk_flat", "desk"), ("apply_update", "apply_update"))
 
 
+# 13c: the hooks at SMOKE size, G = 4 (two clients a client shard): round 1
+# of the guard's script poisons client 1, scales client 2 by 1e3 and drops
+# client 3
+MESH_HOOK_CLIENTS = 4
+MESH_HOOK_CODES = ((OK,) * 4, (OK, NAN, BYZANTINE, DROP), (OK,) * 4)
+MESH_NORM_MULT = 3.0
+
+
+def mesh_hook_cases(stream_dir: str) -> tuple:
+    """(name, mesh, topology, hooks) of 13c; ``stream_dir`` takes the stream
+    case's shards."""
+    guard = dict(faults=FaultTable(codes=MESH_HOOK_CODES),
+                 sentinel=SentinelConfig(norm_mult=MESH_NORM_MULT))
+    return (
+        ("microbatch 1", MESH_GRID, "cross_device", dict(microbatch=1)),
+        ("int8 codec", MESH_GRID, "cross_device",
+         dict(codec=CodecConfig(bits=8, error_feedback=False))),
+        ("faults + sentinel", MESH_GRID, "cross_device", guard),
+        ("ring stagger", MESH_GRID, "cross_device",
+         dict(buffer=AsyncConfig(max_delay=2, delay="stagger"))),
+        ("ring uniform + guard", MESH_GRID, "cross_device",
+         dict(buffer=AsyncConfig(max_delay=2, delay="uniform"), **guard)),
+        ("telemetry", MESH_GRID, "cross_device", dict(telemetry=Telemetry())),
+        ("telemetry dp", MESH_GRID, "cross_device_dp", dict(telemetry=Telemetry())),
+        ("stream", MESH_GRID, "cross_device",
+         dict(telemetry=Telemetry(), stream=ShardWriter(stream_dir))),
+        ("guard cross_silo", MESH_SILO, "cross_silo", guard))
+
+
+# 13d: bert_100m full width, G = 8 on the grid (four clients a client
+# shard): the guard's round 1 poisons client 1 (shard 0), scales client 5 by
+# 1e3 and drops client 6 (shard 1)
+MESH_FULL_CLIENTS = 8
+MESH_FULL_CODES = ((OK,) * 8, (OK, NAN, OK, OK, OK, BYZANTINE, DROP, OK),
+                   (OK,) * 8)
+# the hooked rounds' calls beyond MESH_STEPS (names in launch/train.py)
+MESH_HOOK_STEPS = MESH_STEPS + (
+    ("corrupt_payload", "faults"), ("sentinel_validity", "sentinel"),
+    ("derive_generation_params", "derive_generation_params"),
+    ("sk_packed_clients_wsum", "sketch chunk"), ("encode_decode", "codec"),
+    ("_mesh_probes", "probes"), ("_gather_losses", "losses"))
+
+
+def read_shards(out_dir: str) -> dict[str, np.ndarray]:
+    """A run's metric shards as a history: each key's rows in round order."""
+    rows = []
+    for path in sorted(Path(out_dir).glob("metrics-*.jsonl")):
+        rows += [json.loads(line) for line in path.read_text().splitlines()]
+    keys = [k for k in rows[0] if k != "kind"] if rows else []
+    return {k: np.array([r[k] for r in rows]) for k in keys}
+
+
 def mesh_plan(model: ModelConfig):
     """The shard-local plan of a rank of the (data 2, model 2) grid."""
     abstract, pspecs = mesh_train._mesh_pspecs(model, "cross_device")
@@ -2633,34 +2693,48 @@ def mesh_data(model: ModelConfig, full: bool) -> LMDataConfig:
     return dataclasses.replace(base, num_clients=MESH_CLIENTS)
 
 
+@functools.lru_cache(maxsize=None)
+def mesh_base_sampler(data: LMDataConfig):
+    """The device sampler of ``data``, built once a process (13d's bigram
+    tables are 8 x 4096^2 floats)."""
+    return BigramLMData(data).device_sampler(batch_per_client=8, local_steps=2)
+
+
 def mesh_run(mesh, model: ModelConfig, topology: str, sketch: SketchConfig,
              data: LMDataConfig, rounds: int, *, fedopt: bool = False,
-             cohort=None, host_loop: bool = False, **scan_kw):
+             cohort=None, host_loop: bool = False, hooks=None, **scan_kw):
     """``rounds`` mesh rounds on this rank from the weights of seed 0 under
     ``prng.key(0)``: ``run_mesh_scan`` (``scan_kw``: chunk_size, on_chunk),
-    or the host loop of the per-round step.  Returns (local params, local
-    state, history, pspecs)."""
+    or the host loop of the per-round step; ``hooks`` the federated hooks
+    (a ``buffer`` gets ``init_mesh_async_state``'s state).  G is
+    ``data.num_clients``.  Returns (local params, local state, history,
+    pspecs)."""
+    hooks = dict(hooks or {})
     cfg = safl_cfg(SketchConfig(kind="none") if fedopt else sketch)
-    smp = mesh_train.mesh_sampler(
-        mesh, BigramLMData(data).device_sampler(batch_per_client=8,
-                                                 local_steps=2), topology)
+    smp = mesh_train.mesh_sampler(mesh, mesh_base_sampler(data), topology)
     _, pspecs = mesh_train._mesh_pspecs(model, topology)
     params = local_shard(mesh, init_params(model, torch.Generator().manual_seed(0),
                                            device=mesh.device), pspecs)
-    state = init_safl(cfg, params)
+    acfg = hooks.get("buffer")
+    state = (init_safl(cfg, params) if acfg is None else
+             mesh_train.init_mesh_async_state(model, cfg, acfg, mesh, params,
+                                              topology, data.num_clients))
     policy = (None if cohort is None else UniformParticipation(
         data.num_clients, frac=cohort / data.num_clients, seed=123))
     key = prng.key(0)
     if host_loop:
-        step, _ = mesh_train.make_safl_train_step(model, cfg, mesh, topology,
-                                                  participation=policy)
-        out = mesh_train.run_mesh_host_loop(step, smp, params, state,
-                                            rounds=rounds, key=key,
-                                            participation=policy)
+        step, _ = mesh_train.make_safl_train_step(
+            model, cfg, mesh, topology, participation=policy,
+            num_clients=data.num_clients,
+            **{k: v for k, v in hooks.items() if k != "stream"})
+        out = mesh_train.run_mesh_host_loop(
+            step, smp, params, state, rounds=rounds, key=key,
+            participation=policy, buffer=acfg, faults=hooks.get("faults"),
+            sentinel=hooks.get("sentinel"))
     else:
         out = mesh_train.run_mesh_scan(model, cfg, mesh, smp, params, state,
                                        rounds=rounds, key=key, topology=topology,
-                                       participation=policy, **scan_kw)
+                                       participation=policy, **hooks, **scan_kw)
     return (*out, pspecs)
 
 
@@ -2674,10 +2748,11 @@ def _every_rank(mesh, values: list[float]) -> list[list[float]]:
 
 
 def mesh_smoke(mesh, device: str) -> dict:
-    """13a on one rank: three rounds of each case at bert_100m SMOKE on
-    ``device``; rank 0 gets every case's gathered params and losses, and
-    whether the scanned driver equals its host loop on every rank
-    (cross_device)."""
+    """13a and 13c on one rank: three rounds of each case at bert_100m SMOKE
+    on ``device``; rank 0 gets every case's gathered params and history
+    (the stream case's from its shards), and whether the scanned driver
+    equals its host loop on every rank (13a's cross_device, 13c's guard and
+    ring)."""
     meshes = {MESH_GRID[1]: mesh, MESH_SILO[1]: make_mesh(*MESH_SILO, device=device)}
     out, local = {}, {}
     for name, (_, axes), topology, fedopt, cohort in MESH_SMOKE_CASES:
@@ -2698,6 +2773,38 @@ def mesh_smoke(mesh, device: str) -> dict:
             and all(torch.equal(s[m][k], s0[m][k]) for m in ("m", "v", "vhat")
                     for k in p))
     out["scan_equals_host_loop"] = min(r[0] for r in _every_rank(mesh, [float(same)])) == 1.0
+
+    data = dataclasses.replace(smoke_data(), num_clients=MESH_HOOK_CLIENTS)
+    hooks = {}
+    with tempfile.TemporaryDirectory(prefix="mesh_stream_") as tmp:
+        for name, (_, axes), topology, kw in mesh_hook_cases(tmp):
+            m = meshes[axes]
+            params, state, hist, pspecs = mesh_run(
+                m, bert_100m.SMOKE, topology, MESH_SMOKE_SKETCH, data,
+                MESH_ROUNDS, hooks=kw)
+            if "stream" in kw:
+                check(hist == {}, "mesh stream: a history came back")
+                hist = read_shards(tmp) if m.rank == 0 else {}
+            local[name] = (params, state, hist)
+            hooks[name] = ({k: v.cpu() for k, v in gather_tree(m, params, pspecs).items()},
+                           None, hist)
+        same = []
+        for name, (_, axes), topology, kw in mesh_hook_cases(tmp):
+            if name not in ("faults + sentinel", "ring stagger"):
+                continue
+            p, s, h, _ = mesh_run(meshes[axes], bert_100m.SMOKE, topology,
+                                  MESH_SMOKE_SKETCH, data, MESH_ROUNDS,
+                                  host_loop=True, hooks=kw)
+            p0, s0, h0 = local[name]
+            s, s0 = (s.get("opt", s), s0.get("opt", s0))
+            same.append(h.keys() == h0.keys()
+                        and all(np.array_equal(h[k], h0[k]) for k in h)
+                        and all(torch.equal(p[k], p0[k]) for k in p)
+                        and all(torch.equal(s[m][k], s0[m][k])
+                                for m in ("m", "v", "vhat") for k in p))
+    out["hooks"] = hooks
+    out["hooks_scan_equals_host_loop"] = min(
+        r[0] for r in _every_rank(mesh, [float(all(same))])) == 1.0
     return out
 
 
@@ -2766,16 +2873,88 @@ def mesh_full(mesh, model: ModelConfig) -> dict:
                 b_bits=torch.empty((), dtype=MAIN_SKETCH.transport_dtype).element_size() * 8)
 
 
+def mesh_full_hooks(mesh, model: ModelConfig) -> dict:
+    """13d on one rank: three rounds of ``model`` (bert_100m at full width)
+    on the grid at G = 8 under each of (i) the guard with telemetry and the
+    stream, (ii) the ring (``stagger``, ``max_delay=2``) and (iii) the
+    streamed fold at ``microbatch=1`` with the int8 codec; chunk 1, every
+    call of ``MESH_HOOK_STEPS`` timed (the device synchronised around it),
+    B1's count set to 0 just before each run.  Rank 0 gets each run's
+    history (the stream's from its shards), round ms, last round's
+    breakdown and every generation's ``derive_generation_params`` ms, and
+    every rank's B1 launches and peak."""
+    data = dataclasses.replace(mesh_data(model, True), num_clients=MESH_FULL_CLIENTS)
+    times: dict[str, list[float]] = {}
+
+    def timed(label, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    saved = [(name, getattr(mesh_train, name)) for name, _ in MESH_HOOK_STEPS]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="mesh_stream_") as tmp:
+        runs = (
+            ("guard", dict(faults=FaultTable(codes=MESH_FULL_CODES),
+                           sentinel=SentinelConfig(norm_mult=MESH_NORM_MULT),
+                           telemetry=Telemetry(), stream=ShardWriter(tmp))),
+            ("ring", dict(buffer=AsyncConfig(max_delay=2, delay="stagger"))),
+            ("microbatch 1 + int8 codec",
+             dict(microbatch=1, codec=CodecConfig(bits=8, error_feedback=False))))
+        for run, hooks in runs:
+            rounds_ms, last, gens, clock = [], {}, [], {}
+
+            def per_round(t, params, state, hist):
+                torch.cuda.synchronize()
+                rounds_ms.append((time.perf_counter() - clock["t"]) * 1e3)
+                last.clear()
+                last.update({k: sum(v) for k, v in times.items()})
+                gens.append(times.get("derive_generation_params", []))
+                times.clear()
+                clock["t"] = time.perf_counter()
+
+            for (name, fn), (_, label) in zip(saved, MESH_HOOK_STEPS):
+                setattr(mesh_train, name, timed(label, fn))
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cs.LAUNCHES.n = 0
+            times.clear()
+            clock["t"] = time.perf_counter()
+            try:
+                _, _, hist, _ = mesh_run(mesh, model, "cross_device", MAIN_SKETCH,
+                                         data, MESH_ROUNDS, hooks=hooks,
+                                         chunk_size=1, on_chunk=per_round)
+            finally:
+                for name, fn in saved:
+                    setattr(mesh_train, name, fn)
+            torch.cuda.synchronize()
+            launches, peak = cs.LAUNCHES.n, peak_gib()
+            if "stream" in hooks:
+                check(hist == {}, "mesh bert_100m: the streamed run returned a history")
+                hist = read_shards(tmp) if mesh.rank == 0 else {}
+            out[run] = dict(hist=hist, rounds_ms=rounds_ms, breakdown=dict(last),
+                            generations=gens,
+                            ranks=_every_rank(mesh, [launches, peak]))
+    return out
+
+
 def mesh_card_rank(mesh) -> dict:
-    """A rank of phase 13 on the card: 13a's card half, then 13b."""
+    """A rank of phase 13 on the card: 13a's and 13c's card half, then 13b
+    and 13d."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return {"smoke": mesh_smoke(mesh, "cuda"),
-            "full": mesh_full(mesh, bert_100m.CONFIG)}
+            "full": mesh_full(mesh, bert_100m.CONFIG),
+            "hooks": mesh_full_hooks(mesh, bert_100m.CONFIG)}
 
 
 def mesh_cpu_rank(mesh) -> dict:
-    """A rank of 13a's CPU half."""
+    """A rank of 13a's and 13c's CPU half."""
     return mesh_smoke(mesh, "cpu")
 
 
@@ -2812,14 +2991,17 @@ def mesh_composition(model: ModelConfig, device="cuda") -> dict:
     return {k: v.cpu() for k, v in new.items()}
 
 
-def phase_mesh() -> int:
+def phase_mesh() -> dict[str, int]:
     """Phase 13: (a) each topology, FedOPT and a cohort at SMOKE size on
     four ranks on the card (sharing it through gloo, or a card each
     through NCCL) against four CPU ranks, and the scanned driver against
     its host loop on both; (b) three bert_100m
     rounds at full width on (data 2, model 2) with their checks, round 1
     against the one-process composition, the ranks' B1 launches and peaks,
-    and a breakdown.  Returns B1's launches in 13b, summed over the ranks."""
+    and a breakdown; (c) each hook at SMOKE size, card against CPU; (d)
+    three bert_100m rounds of each hooked run at full width.  Returns B1's
+    launches summed over the ranks: at G = 1 (13b and 13d's streamed fold)
+    and at G = 4 (13d's guarded and ring rounds)."""
     t0 = time.perf_counter()
     world = math.prod(MESH_GRID[0])
     shared = choose_backend(world, "cuda") == "gloo"
@@ -2831,8 +3013,8 @@ def phase_mesh() -> int:
     t1 = time.perf_counter()
     cpu = spawn(mesh_cpu_rank, *MESH_GRID, device="cpu", timeout=900)
     t2 = time.perf_counter()
-    print(f"phase 13: card ranks {t1 - t0:.1f} s (13a and 13b), CPU ranks "
-          f"{t2 - t1:.1f} s")
+    print(f"phase 13: card ranks {t1 - t0:.1f} s (13a to 13d), CPU ranks "
+          f"{t2 - t1:.1f} s (13a, 13c)")
     for name, *_ in MESH_SMOKE_CASES:
         compare_card_cpu(f"mesh {name}", card["smoke"][name], cpu[name])
     for dev, out in (("card", card["smoke"]), ("CPU", cpu)):
@@ -2884,8 +3066,132 @@ def phase_mesh() -> int:
           f"coordinates outside phase 3's tolerance {outside}, bitwise equal {exact}")
     check(got.keys() == want.keys() and outside == 0,
           "mesh bert_100m: round 1 differs from the one-process composition")
+    report_mesh_hooks_smoke(card["smoke"], cpu)
+    hooked = report_mesh_hooks_full(card["hooks"], full["b_total"], where)
     print(f"phase 13 {time.perf_counter() - t0:.1f} s")
-    return sum(launches)
+    return {"countsketch_mesh": sum(launches) + hooked[1],
+            "countsketch_mesh_g4": hooked[4]}
+
+
+# the probes card against CPU: float32 sums over ~3e5 coordinates in other
+# orders, and AMSGrad's moments after the noise of phase 3's tolerance
+MESH_PROBE_RTOL = 1e-3
+
+
+def report_mesh_hooks_smoke(card: dict, cpu: dict) -> None:
+    """13c's checks: each hooked run card against CPU within phase 3's
+    tolerance, the counters and ``uplink_bits`` equal, ``arrival_weight``
+    within 1e-6 and the probes within ``MESH_PROBE_RTOL``, the guard's
+    counters the script's, and the scan bitwise its host loop (guard,
+    ring) on both."""
+    print(f"== phase 13c: the hooks at bert_100m SMOKE, G = {MESH_HOOK_CLIENTS} "
+          f"(two clients a client shard), card against CPU ==")
+    d = sum(math.prod(s) for s in param_shapes(bert_100m.SMOKE).values())
+    for name, _, _, kw in mesh_hook_cases(tempfile.gettempdir()):
+        got, want = card["hooks"][name], cpu["hooks"][name]
+        # the codec turns the devices' float noise into whole rounding
+        # levels: phase 9a's budget of coordinates outside the tolerance
+        compare_card_cpu(f"mesh {name}", got, want,
+                         allowed=d // 1000 if "codec" in kw else 0)
+        hg, hc = got[2], want[2]
+        check(hg.keys() == hc.keys(), f"mesh {name}: history keys differ")
+        for k in hg:
+            if k in ("n_dropped", "n_rejected", "diverged", "uplink_bits", "t"):
+                check(np.array_equal(hg[k], hc[k]),
+                      f"mesh {name}: {k} card {hg[k]} cpu {hc[k]}")
+            elif k == "arrival_weight":
+                check(np.allclose(hg[k], hc[k], rtol=1e-6, atol=0),
+                      f"mesh {name}: arrival_weight card {hg[k]} cpu {hc[k]}")
+            elif k != "loss":
+                gap = float(np.max(np.abs(hg[k] - hc[k]) / np.maximum(np.abs(hc[k]), 1e-30)))
+                print(f"mesh {name}: {k} card {hg[k]} (largest relative gap to "
+                      f"the CPU {gap:.2e})")
+                check(gap <= MESH_PROBE_RTOL, f"mesh {name}: probe {k} differs")
+        counters = {k: hg[k].tolist() for k in hg
+                    if k in ("n_dropped", "n_rejected", "diverged", "uplink_bits",
+                             "arrival_weight")}
+        if counters:
+            print(f"mesh {name}: {counters} (equal on the CPU)")
+        if "n_rejected" in hg:
+            check(hg["n_dropped"].tolist() == [0.0, 1.0, 0.0]
+                  and hg["n_rejected"].tolist() == [0, 2, 0],
+                  f"mesh {name}: the guard's counters are not the script's")
+    check(card["hooks"]["stream"][2]["t"].tolist() == list(range(MESH_ROUNDS)),
+          "mesh stream: rank 0's shards do not hold the rounds")
+    for dev, out in (("card", card), ("CPU", cpu)):
+        print(f"mesh hooks on the {dev}: run_mesh_scan bitwise run_mesh_host_loop "
+              f"under the guard and the ring on every rank: "
+              f"{out['hooks_scan_equals_host_loop']}")
+        check(out["hooks_scan_equals_host_loop"],
+              f"mesh hooks: the scanned driver differs from its host loop on the {dev}")
+
+
+def report_mesh_hooks_full(runs: dict, b_total: int, where: str) -> dict[int, int]:
+    """13d's checks and numbers: finite losses, the guard's counters
+    (round 1: 1 dropped, 2 rejected, none diverged) from rank 0's shards,
+    the ring's ``arrival_weight`` against its closed form, the codec's
+    measured bits, B1's launches by rank (1, 1 and 4 a round), rank 0's
+    round ms and breakdown, every rank's peak.  Returns B1's launches summed
+    over the ranks by the rows of its calls."""
+    print(f"== phase 13d: bert_100m full width on (data 2, model 2), G = "
+          f"{MESH_FULL_CLIENTS} (four clients a client shard), {where} ==")
+    calls = {"guard": 1, "ring": 1, "microbatch 1 + int8 codec": MESH_FULL_CLIENTS // 2}
+    launches_by_rows = {1: 0, MESH_FULL_CLIENTS // 2: 0}
+    peaks = []
+    for run, out in runs.items():
+        hist = out["hist"]
+        check(len(hist["loss"]) == MESH_ROUNDS and np.isfinite(hist["loss"]).all(),
+              f"mesh bert_100m {run}: losses {hist['loss']}")
+        for t, (loss, ms) in enumerate(zip(hist["loss"], out["rounds_ms"])):
+            print(f"mesh bert_100m {run} round {t}: loss {loss:.5f}  rank 0 ms "
+                  f"{ms:.1f}" + ("  (with set-up)" if t == 0 else ""))
+        extra = {k: hist[k].tolist() for k in hist if k not in ("loss", "t")}
+        print(f"mesh bert_100m {run}: {extra}")
+        launches = [int(r[0]) for r in out["ranks"]]
+        run_peaks = [r[1] for r in out["ranks"]]
+        peaks.append(max(run_peaks))
+        print(f"mesh bert_100m {run}: B1 launches by rank {launches} (expect "
+              f"{calls[run] * MESH_ROUNDS} each); peak device memory by rank "
+              f"{', '.join(f'{p:.2f}' for p in run_peaks)} GiB (sum {sum(run_peaks):.2f})")
+        check(all(n == calls[run] * MESH_ROUNDS for n in launches),
+              f"mesh bert_100m {run}: B1 launches by rank {launches}")
+        check(sum(run_peaks) < 75.0,
+              f"mesh bert_100m {run}: the ranks' peaks sum to {sum(run_peaks):.1f} GiB")
+        rows = 1 if calls[run] > 1 else MESH_FULL_CLIENTS // 2
+        launches_by_rows[rows] += sum(launches)
+        bd = dict(out["breakdown"])
+        total = out["rounds_ms"][-1]
+        bd["rest"] = total - sum(bd.values())
+        print(f"mesh bert_100m {run} round {MESH_ROUNDS - 1} breakdown on rank 0 "
+              f"(ms, round {total:.1f}; each call timed between device "
+              f"synchronises): " + ", ".join(
+                  f"{k} {v:.1f} ({100 * v / total:.0f}%)" for k, v in bd.items()))
+        gens = [g for g in out["generations"] if g]
+        if gens:
+            print(f"mesh bert_100m {run}: derive_generation_params ms by round, "
+                  f"one a generation: {[[round(x, 1) for x in g] for g in gens]}")
+    guard = runs["guard"]["hist"]
+    check(guard["t"].tolist() == list(range(MESH_ROUNDS)),
+          "mesh bert_100m guard: the stream's shards do not hold the three rounds")
+    check(guard["n_dropped"].tolist() == [0.0, 1.0, 0.0]
+          and guard["n_rejected"].tolist() == [0, 2, 0]
+          and guard["diverged"].tolist() == [0.0, 0.0, 0.0],
+          f"mesh bert_100m guard: counters {guard['n_dropped']}, "
+          f"{guard['n_rejected']}, {guard['diverged']}")
+    acfg = AsyncConfig(max_delay=2, delay="stagger")
+    want = [sum(float(async_module.arrival_weight(acfg, t - d, d, MESH_FULL_CLIENTS,
+                                                  "cpu").sum())
+                for d in range(acfg.buffer_rounds)) for t in range(MESH_ROUNDS)]
+    got = runs["ring"]["hist"]["arrival_weight"]
+    print(f"mesh bert_100m ring: arrival_weight {got.tolist()} (closed form {want})")
+    check(np.allclose(got, want, rtol=1e-6), "mesh bert_100m ring: arrival_weight")
+    bits = CodecConfig(bits=8, error_feedback=False).payload_bits(b_total) * 2
+    got = runs["microbatch 1 + int8 codec"]["hist"]["uplink_bits"]
+    print(f"mesh bert_100m codec: uplink_bits {got.tolist()} (payload_bits("
+          f"{b_total:,}) x 2 client shards = {bits:,})")
+    check((got == bits).all(), "mesh bert_100m codec: uplink_bits")
+    print(f"mesh bert_100m hooked runs: the largest rank peak {max(peaks):.2f} GiB")
+    return launches_by_rows
 
 
 def print_cs_launches(name: str, n: dict[str, int]) -> None:
@@ -2987,7 +3293,8 @@ def main() -> int:
           f"{sum(c.n for c in counts)} of the TPU kernels' counterparts (it reaches "
           f"none, as in the reference)")
     torch.cuda.empty_cache()
-    by_name["countsketch_mesh"]["launches"] = phase_mesh()
+    for name, calls in phase_mesh().items():
+        by_name[name]["launches"] = calls
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")

@@ -186,6 +186,11 @@ class ShardedSampler:
     start: int
     stop: int
 
+    @property
+    def num_clients(self) -> int:
+        """The clients of the whole batch, every rank's rows together."""
+        return self.base.num_clients
+
     def init_state(self, device="cuda") -> dict:
         return self.base.init_state(device)
 

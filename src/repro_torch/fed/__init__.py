@@ -9,7 +9,8 @@ from repro_torch.fed.async_buffer import (AsyncConfig, arrival_weight,
 from repro_torch.fed.codec import (CodecConfig, encode_decode,
                                    init_codec_state, measured_uplink_bits)
 from repro_torch.fed.faults import (BYZANTINE, DROP, INF, NAN, OK, FaultConfig,
-                                    FaultTable, corrupt_payload, fold_arrivals)
+                                    FaultTable, corrupt_payload, fold_arrivals,
+                                    take_rows)
 from repro_torch.fed.participation import (AvailabilityTrace, FixedCohort,
                                            FullParticipation,
                                            ImportanceParticipation,
@@ -19,4 +20,4 @@ from repro_torch.fed.participation import (AvailabilityTrace, FixedCohort,
                                            masked_mean_tree, round_variates)
 from repro_torch.fed.robust import (SentinelConfig, carry_if_empty,
                                     divergence_flag, guard_uplink,
-                                    masked_median)
+                                    masked_median, sentinel_validity)

@@ -148,6 +148,11 @@ def corrupt_payload(spec: dict, payloads: torch.Tensor) -> torch.Tensor:
     return torch.where(spec["inf"][:, None], float("inf"), s)
 
 
+def take_rows(spec: dict, rows: torch.Tensor) -> dict:
+    """A global (G,) fault spec cut down to a mesh rank's client ``rows``."""
+    return {k: v[rows] for k, v in spec.items()}
+
+
 def fold_arrivals(spec: dict, part_mask):
     """Fold dropout into the aggregation mask: a dropped client weighs 0,
     as if unsampled.  A weighted mask keeps its static denominator."""

@@ -27,6 +27,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.safl import _f32, mask_weights
 from repro_torch.fed.faults import corrupt_payload, fold_arrivals, n_dropped
@@ -131,3 +132,38 @@ def divergence_flag(scfg: SentinelConfig, loss: torch.Tensor) -> torch.Tensor:
     if scfg.divergence > 0.0:
         bad = bad | (loss > _f32(scfg.divergence))
     return bad.to(torch.float32)
+
+
+def sentinel_validity(scfg: SentinelConfig, payload_loc: torch.Tensor,
+                      rows: torch.Tensor, w_arr: torch.Tensor,
+                      num_clients: int, group=None):
+    """The sentinel's verdicts on a mesh rank's ``(G_loc, b_loc)`` payload
+    slice (its client ``rows``, one model shard of each row), the same on
+    every rank.  A client is finite only if every shard of its row is, and
+    its squared norm is the sum of its shards', so the two ``(G,)`` stats
+    arrays cross ONE ``all_reduce`` over ``group``, the group of every mesh
+    axis (client axes join disjoint rows, the others join shards of a row).
+    Where every model rank holds the whole row (``cross_device_dp``) the
+    stats come out multiplied by the model axis's size, as in the
+    reference: the norm test is scale-free and ``bad`` is only compared
+    with 0.
+
+    Returns ``(valid (G,), clean_loc, n_rejected)``: the local slice with
+    its non-finite rows zeroed (a row bad only on another rank gets weight
+    0 from ``valid``)."""
+    ok_loc = torch.isfinite(payload_loc).all(dim=-1)
+    clean_loc = torch.where(ok_loc[:, None], payload_loc, 0.0)
+    stats = torch.zeros((2, num_clients), dtype=torch.float32,
+                        device=payload_loc.device)
+    stats[0].index_add_(0, rows, (~ok_loc).to(torch.float32))
+    stats[1].index_add_(0, rows, torch.sum(torch.square(clean_loc), dim=-1)
+                        .to(torch.float32))
+    if group is not None:
+        dist.all_reduce(stats, group=group)
+    bad, nrm2 = stats[0], stats[1]
+    valid = bad == 0
+    if scfg.norm_mult > 0.0:
+        med2 = masked_median(nrm2, (w_arr > 0) & valid)
+        valid = valid & (nrm2 <= norm_bound(scfg, med2))
+    n_rejected = torch.sum((w_arr > 0) & ~valid).to(torch.int32)
+    return valid, clean_loc, n_rejected

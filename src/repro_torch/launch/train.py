@@ -2,22 +2,25 @@
 
 Counterpart of ``repro/launch/train.py``: the mesh layout helpers, the
 shard-local sketch with its one payload ``all_reduce`` a round, the SAFL
-and FedOPT mesh steps (hookless, or with a participation policy), the
-scanned driver ``run_mesh_scan`` and the host-loop driver
-``run_mesh_host_loop`` in the three topologies, and ``train_loop``.
+and FedOPT mesh steps with every federated hook, the scanned driver
+``run_mesh_scan`` and the host-loop driver ``run_mesh_host_loop`` in the
+three topologies, and ``train_loop``.
 
-The FL topology maps onto the mesh (DESIGN §3): one client a (pod, data)
-index in ``cross_device`` and ``cross_device_dp``, one a pod in
-``cross_silo``.  Every rank runs ``fn(mesh, ...)`` on its own shards
-(``launch.mesh.spawn``); a rank's client is the row-major index of its
-coordinates over the client axes, the order in which the reference's
-``shard_map`` splits the client axis.  One round on each rank:
+The FL topology maps onto the mesh (DESIGN §3): the clients are split
+row-major over the client axes (the (pod, data) indices in
+``cross_device`` and ``cross_device_dp``, the pods in ``cross_silo``), in
+the order in which the reference's ``shard_map`` splits the client axis.
+The reference's layout is one client a client shard; a mesh round built
+with ``num_clients=G`` (the scanned driver takes its sampler's count)
+gives each rank G_loc = G / #client shards rows.  Every rank runs
+``fn(mesh, ...)`` on its own shards (``launch.mesh.spawn``).  One round
+on each rank:
 
-  1. all-gather its client's weights over the non-client axes (the
+  1. all-gather its clients' weights over the non-client axes (the
      server's downlink; ``models.sharding.gather_tree``);
-  2. run ``core.safl.client_deltas`` on its client's full microbatches;
-  3. keep the local shard of the delta;
-  4. sketch it with the round's operator over the SHARD-LOCAL plan
+  2. run ``core.safl.client_deltas`` on its clients' full microbatches;
+  3. keep the local shard of each delta;
+  4. sketch them with the round's operator over the SHARD-LOCAL plan
      (``core.packed.make_sharded_packing_plan``; every model/FSDP shard
      applies the same operator to its own slice, as the reference's
      ``shard_map`` does with a replicated key), so the uplink is ONE
@@ -36,13 +39,33 @@ inside the client step (so that no rank holds a whole replica) is left
 for later (ROADMAP A-11 step 3); it matters only on more than one card,
 and jamba and deepseek-v3 at full width exceed one card even as one block.
 
+The hooks act on a rank's own rows and shards, each with the reference's
+collectives:
+
+* ``participation=``: the round's (G,) cohort mask, its slice of weights
+  fused into the payload ``all_reduce``;
+* ``faults=``/``sentinel=`` (the guard, DESIGN §10): each rank corrupts and
+  vets its own payload rows (``fed.faults.take_rows``); the sentinel's
+  stats cross one ``all_reduce`` over every mesh axis
+  (``fed.robust.sentinel_validity``) before the one payload ``all_reduce``;
+* ``buffer=`` (``fed.async_buffer.AsyncConfig``): the staleness ring, a
+  rank's ``(D, G_loc, b_total)`` block in the round state
+  (``init_mesh_async_state``), pushed after the guard, every generation's
+  partial sums in one fused ``all_reduce``;
+* ``microbatch=``: the streamed fold over chunks of a rank's rows, one
+  ``all_reduce`` of the ``(b_total,)`` sum and its weight;
+* ``codec=`` (``fed.codec.CodecConfig`` without error feedback): each
+  rank's weighted partial sum encoded before the one ``all_reduce``, its
+  rounding stream keyed by the client shard's flat index;
+* ``telemetry=`` (``obs.Telemetry``): the probes; Δ̄ costs one O(d_local)
+  ``all_reduce``, and each norm sums a leaf's squares over the axes that
+  shard it (opt-in, as in the reference);
+* ``stream=`` (``obs.shards.ShardWriter``): rank 0 writes the shards.
+
 The mesh round is a round function of ``launch.driver``: the scanned
 driver is ``driver.run_scan`` over it (the port compiles nothing, so a
 chunk is the host loop's rounds with the metrics fetched once per chunk)
 and the host loop ``driver.run_host_loop``; both give the same bits.
-The hooks ``buffer``, ``faults``, ``sentinel``, ``telemetry``, ``stream``,
-``microbatch`` and ``codec`` are ROADMAP A-11 step 2 and raise
-``NotImplementedError`` here.
 
 Run as a module for a single-host training run:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --smoke
@@ -53,37 +76,46 @@ from __future__ import annotations
 
 import argparse
 import functools
+import operator
 from typing import Mapping, Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import prng
-from repro_torch.core.adaptive import AdaConfig, apply_update
-from repro_torch.core.packed import (PackingPlan, derive_round_params,
-                                     desk_flat, make_packing_plan,
+from repro_torch.core.adaptive import (AdaConfig, apply_update,
+                                       init_opt_state)
+from repro_torch.core.packed import (PackingPlan, derive_generation_params,
+                                     derive_round_params, desk_flat,
+                                     make_packing_plan,
                                      make_sharded_packing_plan,
                                      shard_local_abstract, sk_packed_clients,
-                                     unpack_rows)
-from repro_torch.core.safl import (SAFLConfig, _f32, client_deltas,
-                                   init_safl, mask_weights, masked_mean,
-                                   masked_psum_mean, safl_round)
+                                     sk_packed_clients_wsum, unpack_rows,
+                                     unpack_tree)
+from repro_torch.core.safl import (SAFLConfig, _f32, chunk_clients,
+                                   client_deltas, init_safl, mask_weights,
+                                   masked_mean, masked_psum_mean,
+                                   resolve_microbatch, safl_round)
 from repro_torch.core.sketch import (SKETCH_CHUNK_NUMEL, SketchConfig,
                                      desk_leaf, desk_leaf_stacked, leaf_names,
                                      numel, sk_leaf, sk_leaf_stacked)
 from repro_torch.data.device import ShardedSampler
+from repro_torch.fed.async_buffer import arrival_weight
+from repro_torch.fed.codec import encode_decode
+from repro_torch.fed.faults import corrupt_payload, n_dropped, take_rows
 from repro_torch.fed.participation import check_policy_clients, is_weighted_mask
+from repro_torch.fed.robust import (carry_if_empty, divergence_flag,
+                                    sentinel_validity, tree_where)
 from repro_torch.launch.driver import run_host_loop, run_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params, loss_fn, param_shapes
-from repro_torch.models.sharding import gather_tree, local_shard, param_pspecs
+from repro_torch.models.sharding import (_entry_axes, gather_tree,
+                                         local_shard, param_pspecs)
+from repro_torch.obs.telemetry import effective_cohort
 
 Tree = Mapping[str, torch.Tensor]
 
 TOPOLOGIES = ("cross_device", "cross_device_dp", "cross_silo")
-
-_STEP_2 = ("is ROADMAP A-11 step 2 and not on the port's mesh yet; run the "
-           "hook on the single-host driver (launch.driver.run_scan)")
 
 
 def data_axes_of(mesh) -> tuple[str, ...]:
@@ -117,10 +149,25 @@ def num_clients_of(mesh, topology: str) -> int:
     return _axes_size(mesh, client_axes_of(mesh, topology))
 
 
-def _refuse_hooks(**hooks) -> None:
-    for name, value in hooks.items():
-        if value is not None:
-            raise NotImplementedError(f"the mesh hook {name}= {_STEP_2}")
+def _round_clients(mesh, topology: str, num_clients: Optional[int]) -> int:
+    """The round's client count G: ``num_clients``, or one client a client
+    shard (the reference's layout).  G must split evenly over the shards."""
+    n = num_clients_of(mesh, topology)
+    g = n if num_clients is None else int(num_clients)
+    if g < 1 or g % n:
+        raise ValueError(f"{g} clients do not split over {n} client shards "
+                         f"{client_axes_of(mesh, topology)}")
+    return g
+
+
+def _client_rows(mesh, caxes, g_loc: int, device) -> torch.Tensor:
+    """The global indices of this rank's client rows."""
+    c = mesh.index_over(caxes)
+    return torch.arange(c * g_loc, (c + 1) * g_loc, device=device)
+
+
+def _rows_of(tree: Tree) -> int:
+    return next(iter(tree.values())).shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -190,19 +237,59 @@ def _sketch_avg_desk_local(skcfg: SketchConfig, group, n_shards: int,
 
 def _sketch_avg_desk_local_packed(plan: PackingPlan, group, n_shards: int,
                                   deltas: Tree, key: prng.Key, w_loc=None,
-                                  den=None) -> dict[str, torch.Tensor]:
+                                  den=None, mb: Optional[int] = None,
+                                  codec=None, cid: int = 0) -> dict[str, torch.Tensor]:
     """The plan route, one rank's shards: the round's operator is derived
     once over the shard-local ``plan`` (shared by sk and desk; per-leaf
     tags as in the per-leaf route), the local client rows are packed and
     sketched in one pass (B1 for the independent count-sketch with
     kernels), and ONE ``(G_loc, b_total)`` payload crosses the collective
-    (one row under a mask).  Returns leaves with a leading row axis."""
+    (one row under a mask).  Returns leaves with a leading row axis.
+
+    ``mb`` streams the sketch over chunks of ``mb`` of the rank's rows
+    (DESIGN §12): each chunk's weighted sketch sum (B1 at G = mb) folds
+    into a running ``(b_total,)`` sum, a short tail chunk padded with
+    zero-weight rows, and the sum and its scalar weight cross ONE
+    ``all_reduce``.  ``codec`` encodes the rank's weighted partial sum
+    right before that one ``all_reduce`` (DESIGN §13), its rounding stream
+    keyed by ``cid``, the client shard's flat index, so every model shard
+    of a client group draws the same uniforms for its own slice.  Both
+    return the cohort mean as one row."""
     device = next(iter(deltas.values())).device
     rp = derive_round_params(plan, key, device)
-    s = sk_packed_clients(plan, rp, deltas)             # (G_loc, b_total)
-    s = _collect(s, group, n_shards, w_loc, den)        # <-- the uplink
-    u = torch.stack([desk_flat(plan, rp, row) for row in s])
-    return unpack_rows(plan, u)
+    if mb is None and codec is None:
+        s = sk_packed_clients(plan, rp, deltas)             # (G_loc, b_total)
+        s = _collect(s, group, n_shards, w_loc, den)        # <-- the uplink
+        u = torch.stack([desk_flat(plan, rp, row) for row in s])
+        return unpack_rows(plan, u)
+    g_loc = _rows_of(deltas)
+    w = (torch.ones(g_loc, dtype=torch.float32, device=device)
+         if w_loc is None else w_loc.to(torch.float32))
+    if mb is not None:
+        n_mb = -(-g_loc // mb)
+        pad = n_mb * mb - g_loc
+        chunks = chunk_clients(deltas, mb, pad)             # (n_mb, mb, ...)
+        wc = torch.cat([w, w.new_zeros(pad)]).reshape(n_mb, mb)  # pads weigh 0
+        S = torch.zeros(plan.b_total, dtype=torch.float32, device=device)
+        W = torch.zeros((), dtype=torch.float32, device=device)
+        for i in range(n_mb):
+            dS, dW = sk_packed_clients_wsum(
+                plan, rp, {k: v[i] for k, v in chunks.items()}, wc[i])
+            S, W = S + dS, W + dW
+        del chunks
+    else:
+        s = sk_packed_clients(plan, rp, deltas).to(torch.float32)
+        S, W = torch.sum(s * w[:, None], dim=0), torch.sum(w)
+        del s
+    if codec is not None:     # encode what the collective moves
+        S = encode_decode(codec, key, S[None], client_ids=[cid])[0][0]
+    if group is not None:     # <-- the uplink: the sum and its weight
+        SW = torch.cat([S, W.reshape(1)])
+        dist.all_reduce(SW, group=group)
+        S, W = SW[:-1], SW[-1]
+    denom = float(den) if den is not None else torch.clamp(W, min=1.0)
+    u = desk_flat(plan, rp, S / denom)
+    return {k: v[None] for k, v in unpack_tree(plan, u, cast=False).items()}
 
 
 def sharded_sketch_avg_desk(mesh, skcfg: SketchConfig, pspecs, deltas: Tree,
@@ -220,25 +307,306 @@ def sharded_sketch_avg_desk(mesh, skcfg: SketchConfig, pspecs, deltas: Tree,
     bits for shards below the layer-chunk threshold.  ``part_mask`` (the
     round's (G,) cohort mask, or the weighted dict) makes the aggregate
     the masked cohort mean, in the same one collective; an all-ones mask
-    gives the unmasked bits."""
-    _refuse_hooks(microbatch=microbatch, codec=codec)
+    gives the unmasked bits.
+
+    ``microbatch`` below G_loc streams the sketch over chunks of the
+    rank's rows (``None`` or >= G_loc is the materialized path, bit for
+    bit); ``codec`` (without error feedback: a rank's payload is a partial
+    sum, not a client's) quantizes each rank's partial sum before the one
+    collective.  Both need the packed plan."""
     caxes = client_axes_of(mesh, topology)
     group, n_shards = mesh.group(caxes), _axes_size(mesh, caxes)
+    g_loc = _rows_of(deltas)
+    mb = None
+    if microbatch is not None:
+        mb = resolve_microbatch(microbatch, g_loc)
+        if mb is not None and plan is None:
+            raise ValueError(
+                "microbatch streaming needs the packed plan route; build one "
+                "with make_sharded_packing_plan (the per-leaf route folds the "
+                "client axis leaf by leaf and cannot stream)")
+    if codec is not None:
+        if plan is None:
+            raise ValueError("the mesh payload codec needs the packed plan "
+                             "route; build one with make_sharded_packing_plan")
+        if codec.error_feedback:
+            raise ValueError(
+                "the mesh uplink quantizes SHARD-LOCAL partial sums; "
+                "per-client error feedback does not exist at that "
+                "granularity -- use CodecConfig(..., error_feedback=False)")
     w_loc = den = None
     if part_mask is not None:
-        g_loc = next(iter(deltas.values())).shape[0]
         c = mesh.index_over(caxes)
         w_loc = mask_weights(part_mask)[c * g_loc:(c + 1) * g_loc]
         den = float(part_mask["den"]) if is_weighted_mask(part_mask) else None
     if plan is not None:
         upd = _sketch_avg_desk_local_packed(plan, group, n_shards, deltas, key,
-                                            w_loc, den)
+                                            w_loc, den, mb=mb, codec=codec,
+                                            cid=mesh.index_over(caxes))
     else:
         upd = _sketch_avg_desk_local(skcfg, group, n_shards, deltas, key,
                                      w_loc, den)
-    # fold the local client axis (one row when G == #client shards, or
-    # under a mask; the mean over the rows otherwise)
+    # fold the local client axis (one row when G == #client shards, under
+    # a mask, streamed or encoded; the mean over the rows otherwise)
     return {k: torch.mean(u, dim=0) for k, u in upd.items()}
+
+
+def _sharded_sketch_guarded(mesh, plan: PackingPlan, deltas: Tree,
+                            key: prng.Key, topology: str, part_mask,
+                            fault_spec, sentinel):
+    """The compressed uplink with the guard (DESIGN §10) on this rank's
+    rows: faults -> sentinels -> cohort mask -> ONE payload ``all_reduce``.
+
+    The (G,) fault spec and mask are the same on every rank; each rank
+    corrupts and vets its own payload rows, and the sentinel's verdicts
+    cost one more ``all_reduce``, of two (G,) stats arrays over every mesh
+    axis (``fed.robust.sentinel_validity``: a client is valid only if
+    every model shard of its row is, or the shards would divide by
+    different cohort weights).  The weighted local sum then crosses the
+    one payload ``all_reduce`` over the client axes.
+
+    Returns ``(update, eff_w (G,), n_rejected)``: the effective weights
+    the caller's loss metric and empty-cohort carry read."""
+    caxes = client_axes_of(mesh, topology)
+    group = mesh.group(caxes)
+    g_loc = _rows_of(deltas)
+    G = g_loc * _axes_size(mesh, caxes)
+    device = next(iter(deltas.values())).device
+    w_full = (torch.ones(G, dtype=torch.float32, device=device)
+              if part_mask is None else mask_weights(part_mask))
+    den = float(part_mask["den"]) if is_weighted_mask(part_mask) else None
+    rp = derive_round_params(plan, key, device)
+    s = sk_packed_clients(plan, rp, deltas)                 # (G_loc, b_loc)
+    rows = _client_rows(mesh, caxes, g_loc, device)
+    w_arr = w_full
+    if fault_spec is not None:
+        s = corrupt_payload(take_rows(fault_spec, rows), s)
+        w_arr = w_full * fault_spec["arrive"]
+    if sentinel is not None:
+        valid, s, n_rej = sentinel_validity(sentinel, s, rows, w_arr, G,
+                                            mesh.group(mesh.axis_names))
+        w_eff = w_arr * valid.to(torch.float32)
+    else:
+        n_rej = torch.zeros((), dtype=torch.float32, device=device)
+        w_eff = w_arr
+    sw = torch.sum(s * w_eff[rows][:, None].to(s.dtype), dim=0)
+    if group is not None:
+        dist.all_reduce(sw, group=group)          # <-- the ONE payload all_reduce
+    if den is not None:       # static Horvitz-Thompson denominator
+        mean = sw / den
+    else:                     # w_eff is the same on every rank
+        mean = sw / torch.clamp(torch.sum(w_eff), min=1.0).to(sw.dtype)
+    u = desk_flat(plan, rp, mean)
+    return unpack_tree(plan, u, cast=False), w_eff, n_rej
+
+
+# ---------------------------------------------------------------------------
+# the staleness ring on the mesh
+# ---------------------------------------------------------------------------
+
+def init_mesh_async_state(model_cfg: ModelConfig, safl_cfg: SAFLConfig, acfg,
+                          mesh, params, topology: str = "cross_device",
+                          num_clients: Optional[int] = None) -> dict:
+    """This rank's round state for ``buffer=acfg``: the server state of its
+    ``params`` shards and its block of the staleness ring, the last
+    ``D = max_delay + 1`` generations' ``(D, G_loc, b_total)`` payload rows
+    of its clients over its shard-local plan, and their ``(D, G_loc)``
+    cohort weights."""
+    _, _, plan = _mesh_plan(model_cfg, safl_cfg, mesh, topology)
+    if safl_cfg.sketch.kind == "none" or plan is None:
+        raise ValueError(
+            "the mesh staleness buffer stores packed (G, b_total) sketch "
+            "payloads: it needs the packed plan route (sketch.kind != "
+            "'none' and every local shard <= SKETCH_CHUNK_NUMEL)")
+    caxes = client_axes_of(mesh, topology)
+    if not caxes:
+        raise ValueError("the mesh staleness buffer needs client mesh axes")
+    g_loc = _round_clients(mesh, topology, num_clients) // _axes_size(mesh, caxes)
+    device = next(iter(params.values())).device
+    D = acfg.buffer_rounds
+    return {"opt": init_opt_state(safl_cfg.server, params),
+            "buf": torch.zeros((D, g_loc, plan.b_total), dtype=torch.float32,
+                               device=device),
+            "bufw": torch.zeros((D, g_loc), dtype=torch.float32, device=device)}
+
+
+def sharded_sketch_buffered(mesh, acfg, plan: PackingPlan, deltas: Tree, buf,
+                            bufw, round_key: prng.Key, base_key: prng.Key,
+                            t: int, topology: str = "cross_device",
+                            part_mask=None, fault_spec=None, sentinel=None):
+    """The FedBuff-style staleness-buffered uplink on this rank (DESIGN §9).
+
+    Sketch the rank's rows with round t's operator, guard them (faults,
+    then sentinels, BEFORE the push: the ring never stores a poisoned row,
+    and a dropped or rejected client stores weight 0), push them and their
+    weights into slot ``t % D``, recompute every generation's arrivals from
+    the delay policy (``fed.async_buffer.arrival_weight``, pure in (g, c,
+    seed)), sum each arriving generation in its own sketch space, and send
+    every generation's partial sum and weight through ONE fused
+    ``all_reduce`` over the client axes.  Each generation is desketched
+    with its own operator re-derived from ``fold_in(base_key, g)``
+    (``core.packed.derive_generation_params``).  ``delay="zero"`` skips the
+    d > 0 generations, so the round is the synchronous masked round.
+
+    Returns ``(update, buf, bufw, W, n_rejected)``: ``W`` the total arrival
+    weight (a zero update when 0), ``n_rejected`` None without a guard."""
+    if is_weighted_mask(part_mask):
+        raise TypeError(
+            "the mesh staleness buffer stores 0/1 cohort masks per "
+            "generation; weighted (importance-sampling) masks are not "
+            "supported -- use a 0/1 participation policy")
+    caxes = client_axes_of(mesh, topology)
+    if not caxes:
+        raise ValueError("the mesh staleness buffer needs client mesh axes")
+    group = mesh.group(caxes)
+    g_loc = _rows_of(deltas)
+    G = g_loc * _axes_size(mesh, caxes)
+    D = acfg.buffer_rounds
+    device = next(iter(deltas.values())).device
+    rp_t = derive_round_params(plan, round_key, device)
+    sks = sk_packed_clients(plan, rp_t, deltas).to(torch.float32)  # (G_loc, b_loc)
+    rows = _client_rows(mesh, caxes, g_loc, device)
+    w_full = (torch.ones(G, dtype=torch.float32, device=device)
+              if part_mask is None else part_mask)
+    n_rej = None
+    if fault_spec is not None or sentinel is not None:
+        if fault_spec is not None:
+            sks = corrupt_payload(take_rows(fault_spec, rows), sks)
+            w_full = w_full * fault_spec["arrive"]
+        if sentinel is not None:
+            valid, sks, n_rej = sentinel_validity(
+                sentinel, sks, rows, w_full, G, mesh.group(mesh.axis_names))
+            w_full = w_full * valid.to(torch.float32)
+        else:
+            n_rej = torch.zeros((), dtype=torch.float32, device=device)
+    w_loc = w_full[rows]
+    # push: generation t takes slot t % D (its tenant, generation t - D,
+    # was fully drained by round t - 1)
+    buf, bufw = buf.clone(), bufw.clone()
+    buf[t % D] = sks
+    bufw[t % D] = w_loc
+    # pop: each generation's arrivals summed in its own sketch space; d = 0
+    # reads the rows just pushed
+    gens, sums, weights = [], [], []
+    for d in range(D):
+        if acfg.delay == "zero" and d > 0:
+            continue                              # no arrival at d > 0
+        g = t - d
+        payload, w_in = (sks, w_loc) if d == 0 else (buf[g % D], bufw[g % D])
+        w = w_in * arrival_weight(acfg, g, d, G, device)[rows]
+        gens.append(g)
+        sums.append(torch.sum(w[:, None] * payload, dim=0))
+        weights.append(torch.sum(w))
+    n, b = len(gens), sks.shape[1]
+    flat = torch.cat([torch.stack(sums).reshape(-1), torch.stack(weights)])
+    del sums
+    if group is not None:
+        dist.all_reduce(flat, group=group)        # <-- one fused all_reduce
+    S, Wd = flat[:n * b].reshape(n, b), flat[n * b:]
+    W = torch.sum(Wd)
+    W_safe = torch.where(W > 0, W, 1.0)           # no arrival: a zero update
+    upd = functools.reduce(operator.add, (
+        desk_flat(plan, rp_t if g == t else
+                  derive_generation_params(plan, base_key, g, device),
+                  S[i] / W_safe)
+        for i, g in enumerate(gens)))
+    return unpack_tree(plan, upd, cast=False), buf, bufw, W, n_rej
+
+
+# ---------------------------------------------------------------------------
+# telemetry on the mesh
+# ---------------------------------------------------------------------------
+
+def _mesh_cohort_mean(mesh, caxes, deltas: Tree, mask, G: int) -> dict:
+    """``masked_mean_tree`` of every client's delta, from this rank's rows:
+    the local (weighted) sums of every leaf laid end to end cross ONE
+    ``all_reduce`` over the client axes (O(d_local)), then divide as
+    ``core.safl.masked_mean`` does."""
+    names = list(deltas)
+    g_loc = _rows_of(deltas)
+    w = None
+    if mask is not None:
+        c = mesh.index_over(caxes)
+        w = mask_weights(mask)[c * g_loc:(c + 1) * g_loc]
+    parts = []
+    for k in names:
+        x = deltas[k]
+        if w is not None:
+            x = x * w.reshape((g_loc,) + (1,) * (x.dim() - 1)).to(x.dtype)
+        parts.append(torch.sum(x, dim=0).reshape(-1))
+    flat = torch.cat(parts)
+    del parts
+    group = mesh.group(caxes)
+    if group is not None:
+        dist.all_reduce(flat, group=group)
+    if mask is None:
+        flat = flat / G
+    elif isinstance(mask, dict):
+        flat = flat / float(mask["den"])
+    else:
+        flat = flat / torch.clamp(torch.sum(mask_weights(mask)), min=1.0)
+    out, off = {}, 0
+    for k in names:
+        shape = deltas[k].shape[1:]
+        out[k] = flat[off:off + numel(shape)].reshape(shape)
+        off += numel(shape)
+    return out
+
+
+def _mesh_tree_norm(mesh, tree: Tree, pspecs) -> torch.Tensor:
+    """The l2 norm of a tree of this rank's shards (float32): each leaf's
+    sum of squares is summed over only the axes that shard it (its spec),
+    one ``all_reduce`` for each set of such axes, so a replicated leaf
+    counts once; then the leaves add in ``obs.telemetry.tree_leaves``'s
+    order (paths sorted component by component)."""
+    names = sorted(tree, key=lambda k: k.split("/"))
+    sq = {k: torch.sum(torch.square(tree[k].to(torch.float32))) for k in names}
+    by_axes: dict[tuple, list] = {}
+    for k in names:
+        axes = tuple(a for e in pspecs[k] for a in _entry_axes(e))
+        by_axes.setdefault(tuple(a for a in mesh.axis_names if a in axes),
+                           []).append(k)
+    for axes, ks in by_axes.items():
+        group = mesh.group(axes)
+        if group is None:
+            continue
+        v = torch.stack([sq[k] for k in ks])
+        dist.all_reduce(v, group=group)
+        sq.update(zip(ks, v))
+    return torch.sqrt(sum(sq[k] for k in names))
+
+
+def _mesh_probes(tel, mesh, topology: str, pspecs, deltas: Tree, update: Tree,
+                 mask, state) -> dict:
+    """``obs.telemetry.telemetry_probes`` of a mesh round, the same on every
+    rank: Δ̄ over all G clients (``_mesh_cohort_mean``), and the norms of
+    Δ̄, the update and the server's moments over their shards
+    (``_mesh_tree_norm``).  ``mask`` is the round's effective mask."""
+    caxes = client_axes_of(mesh, topology)
+    G = _rows_of(deltas) * _axes_size(mesh, caxes)
+    device = next(iter(deltas.values())).device
+    out = {}
+    dbar = dn = None
+    if tel.delta_norm or tel.residual:
+        dbar = _mesh_cohort_mean(mesh, caxes, deltas, mask, G)
+        dn = _mesh_tree_norm(mesh, dbar, pspecs)
+        if tel.delta_norm:
+            out["delta_norm"] = dn
+    if tel.update_norm:
+        out["update_norm"] = _mesh_tree_norm(mesh, update, pspecs)
+    if tel.residual:
+        diff = {k: a - update[k].to(torch.float32) for k, a in dbar.items()}
+        out["residual"] = (_mesh_tree_norm(mesh, diff, pspecs)
+                           / torch.clamp(dn, min=1e-12))
+        del diff
+    if tel.moments:
+        opt = state.get("opt", state)
+        for k, name in (("m", "m_norm"), ("v", "v_norm"), ("vhat", "vhat_norm")):
+            if k in opt:
+                out[name] = _mesh_tree_norm(mesh, opt[k], pspecs)
+    if tel.cohort:
+        out["cohort"] = effective_cohort(mask, G, device)
+    return {k: v.to(torch.float32) for k, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -305,35 +673,179 @@ def _mesh_plan(model_cfg: ModelConfig, safl_cfg: SAFLConfig, mesh,
                                                        pspecs, sizes)
 
 
+def _check_hooks(safl_cfg: SAFLConfig, plan, G: int, *, participation, buffer,
+                 faults, sentinel, telemetry, microbatch, codec) -> None:
+    """The reference's hook matrix, in its order and with its exception
+    types: the codec and the streamed fold run only on plain sketched
+    rounds, the guard and the ring need the packed plan, and every client
+    count must be the round's."""
+    sketched = safl_cfg.sketch.kind != "none"
+    guarded = faults is not None or sentinel is not None
+    if codec is not None:
+        if buffer is not None or guarded:
+            raise NotImplementedError(
+                "the mesh payload codec quantizes shard-local partial sums; "
+                "the staleness buffer and the fault/sentinel guard operate on "
+                "materialized per-client payload rows -- run those hooks "
+                "without codec=")
+        if telemetry is not None:
+            raise ValueError("telemetry probes read the unquantized delta "
+                             "tree; drop telemetry= or codec=")
+        if not sketched:
+            raise ValueError(
+                "the payload codec quantizes the packed sketch uplink; "
+                "fedopt (sketch.kind='none') has no sketch payload")
+        if plan is None:
+            raise ValueError("the mesh payload codec needs the packed plan "
+                             "route (every local shard <= SKETCH_CHUNK_NUMEL)")
+        if codec.error_feedback:
+            raise ValueError(
+                "the mesh uplink quantizes SHARD-LOCAL partial sums; "
+                "per-client error feedback does not exist at that "
+                "granularity -- use CodecConfig(..., error_feedback=False)")
+    if microbatch is not None:
+        resolve_microbatch(microbatch, G)       # rejects mb <= 0 at build time
+        if buffer is not None or guarded:
+            raise NotImplementedError(
+                "mesh microbatch streaming folds the payload before any "
+                "per-client row exists; the staleness buffer and the "
+                "fault/sentinel guard operate on materialized payload rows "
+                "-- run those hooks without microbatch=")
+        if telemetry is not None:
+            raise ValueError("telemetry probes read the materialized cohort "
+                             "delta tree; drop telemetry= or microbatch=")
+        if not sketched:
+            raise ValueError(
+                "mesh microbatch streaming folds in sketch space; fedopt "
+                "(sketch.kind='none') has no sketch payload")
+        if plan is None:
+            raise ValueError("mesh microbatch streaming needs the packed plan "
+                             "route (every local shard <= SKETCH_CHUNK_NUMEL)")
+    if participation is not None:
+        check_policy_clients(participation, G, "mesh driver")
+    if guarded:
+        if not sketched:
+            raise ValueError(
+                "fault injection / payload sentinels act on the packed sketch "
+                "uplink; fedopt (sketch.kind='none') has no sketch payload")
+        if plan is None:
+            raise ValueError("the mesh fault/sentinel hooks need the packed "
+                             "plan route (every local shard <= "
+                             "SKETCH_CHUNK_NUMEL)")
+        if faults is not None and faults.num_clients != G:
+            raise ValueError(f"fault policy covers {faults.num_clients} "
+                             f"clients, the mesh topology has {G}")
+    if buffer is not None:
+        if not sketched:
+            raise ValueError("the staleness buffer aggregates in sketch "
+                             "space; fedopt (sketch.kind='none') cannot ride it")
+        if plan is None:
+            raise ValueError("the mesh staleness buffer needs the packed plan "
+                             "route (every local shard <= SKETCH_CHUNK_NUMEL)")
+
+
 def _make_round_core(model_cfg: ModelConfig, safl_cfg: SAFLConfig, mesh,
                      topology: str = "cross_device", *, participation=None,
                      buffer=None, faults=None, sentinel=None, telemetry=None,
-                     microbatch=None, codec=None):
-    """The SAFL mesh round ``core(params, state, batch, round_key, *,
-    part_mask=None) -> (params, state, {"loss": loss})`` on this rank's
-    shards (params and state per ``pspecs``/``opt_pspecs``, batch its
-    clients' rows): a round function of ``launch.driver``, which draws the
-    batch, derives the round key and evaluates the cohort mask.  Returns
-    ``(core, pspecs)``.  ``participation`` only checks the policy's client
-    count."""
-    _refuse_hooks(buffer=buffer, faults=faults, sentinel=sentinel,
-                  telemetry=telemetry, microbatch=microbatch, codec=codec)
-    _, pspecs, plan = _mesh_plan(model_cfg, safl_cfg, mesh, topology)
-    if participation is not None:
-        check_policy_clients(participation, num_clients_of(mesh, topology),
-                             "mesh driver")
-    eta = _f32(safl_cfg.client_lr)
+                     microbatch=None, codec=None,
+                     num_clients: Optional[int] = None):
+    """The SAFL mesh round ``core(params, state, batch, round_key, *, t=None,
+    base_key=None, part_mask=None, fault_spec=None) -> (params, state,
+    metrics)`` on this rank's shards (params and state per
+    ``pspecs``/``opt_pspecs``, batch its clients' rows): a round function
+    of ``launch.driver``, which draws the batch, derives the round key and
+    evaluates the cohort mask, the fault spec and, under ``buffer=``, hands
+    in ``t`` and the base key.  Returns ``(core, pspecs)``.
 
-    def core(params, state, batch, key, *, part_mask=None):
+    The metrics are the loss, and: ``n_rejected``, ``n_dropped`` (with
+    ``faults``) and ``diverged`` (with ``sentinel``) from a guarded round;
+    ``arrival_weight`` from a buffered one (the state is then
+    ``init_mesh_async_state``'s dict); ``uplink_bits`` from a codec round,
+    the measured size of one encoded ``(b_total,)`` row a client shard;
+    the probes with ``telemetry``.  A guarded round with no surviving
+    client, or a guarded buffered round with no arrival, carries the
+    server through.  ``num_clients`` is G (default one client a client
+    shard); every hook combination the reference rejects raises here, at
+    build time."""
+    _, pspecs, plan = _mesh_plan(model_cfg, safl_cfg, mesh, topology)
+    G = _round_clients(mesh, topology, num_clients)
+    _check_hooks(safl_cfg, plan, G, participation=participation,
+                 buffer=buffer, faults=faults, sentinel=sentinel,
+                 telemetry=telemetry, microbatch=microbatch, codec=codec)
+    guarded = faults is not None or sentinel is not None
+    eta = _f32(safl_cfg.client_lr)
+    n_shards = num_clients_of(mesh, topology)
+    server = safl_cfg.server
+
+    def probes(metrics, deltas, update, state, mask):
+        if telemetry is None:
+            return metrics
+        return {**metrics, **_mesh_probes(telemetry, mesh, topology, pspecs,
+                                          deltas, update, mask, state)}
+
+    def core(params, state, batch, key, *, t=None, base_key=None,
+             part_mask=None, fault_spec=None):
+        if _rows_of(batch) * n_shards != G:
+            raise ValueError(
+                f"the batch holds {_rows_of(batch)} clients a rank on "
+                f"{n_shards} client shards; the round was built for {G} "
+                f"(num_clients=)")
         deltas, losses = client_deltas_sharded(
             model_cfg, safl_cfg, mesh, topology, params, batch, eta, pspecs)
+        losses = _gather_losses(mesh, topology, losses)
+        kept = deltas if telemetry is not None else None
+        if buffer is not None:
+            update, buf, bufw, W, n_rej = sharded_sketch_buffered(
+                mesh, buffer, plan, deltas, state["buf"], state["bufw"], key,
+                base_key, t, topology, part_mask=part_mask,
+                fault_spec=fault_spec, sentinel=sentinel)
+            del deltas
+            new_params, opt = apply_update(server, state["opt"], params, update)
+            loss = masked_mean(losses, part_mask)
+            metrics = {"loss": loss, "arrival_weight": W}
+            if guarded:
+                metrics["n_rejected"] = n_rej
+            if fault_spec is not None:
+                metrics["n_dropped"] = n_dropped(fault_spec, part_mask)
+            if sentinel is not None:
+                # a round with no arrival carries the server through
+                new_params, opt = tree_where(W > 0, (new_params, opt),
+                                             (params, state["opt"]))
+                metrics["diverged"] = divergence_flag(sentinel, loss)
+            new_state = {"opt": opt, "buf": buf, "bufw": bufw}
+            return new_params, new_state, probes(metrics, kept, update,
+                                                 new_state, part_mask)
+        if guarded:
+            update, eff_w, n_rej = _sharded_sketch_guarded(
+                mesh, plan, deltas, key, topology, part_mask, fault_spec,
+                sentinel)
+            del deltas
+            eff_mask = ({**part_mask, "w": eff_w}
+                        if is_weighted_mask(part_mask) else eff_w)
+            new_params, new_state = apply_update(server, state, params, update)
+            loss = masked_mean(losses, eff_mask)
+            metrics = {"loss": loss, "n_rejected": n_rej}
+            if fault_spec is not None:
+                metrics["n_dropped"] = n_dropped(fault_spec, part_mask)
+            if sentinel is not None:
+                new_params, new_state = carry_if_empty(
+                    eff_mask, (new_params, new_state), (params, state))
+                metrics["diverged"] = divergence_flag(sentinel, loss)
+            return new_params, new_state, probes(metrics, kept, update,
+                                                 new_state, eff_mask)
         update = sharded_sketch_avg_desk(
             mesh, safl_cfg.sketch, pspecs, deltas, key, topology, plan=plan,
-            part_mask=part_mask)
+            part_mask=part_mask, microbatch=microbatch, codec=codec)
         del deltas
-        params, state = apply_update(safl_cfg.server, state, params, update)
-        loss = masked_mean(_gather_losses(mesh, topology, losses), part_mask)
-        return params, state, {"loss": loss}
+        params, state = apply_update(server, state, params, update)
+        metrics = {"loss": masked_mean(losses, part_mask)}
+        if codec is not None:
+            # the measured wire size: one encoded (b_total,) partial sum a
+            # client shard crosses the collective, whatever the mask
+            metrics["uplink_bits"] = torch.tensor(
+                float(codec.payload_bits(plan.b_total) * n_shards),
+                dtype=torch.float32, device=metrics["loss"].device)
+        return params, state, probes(metrics, kept, update, state, part_mask)
 
     return core, pspecs
 
@@ -342,21 +854,22 @@ def make_safl_train_step(model_cfg: ModelConfig, safl_cfg: SAFLConfig, mesh,
                          topology: str = "cross_device", *,
                          participation=None, buffer=None, faults=None,
                          sentinel=None, telemetry=None, microbatch=None,
-                         codec=None):
+                         codec=None, num_clients: Optional[int] = None):
     """SAFL round on the mesh, on this rank's shards; its batch leaves are
     ``(G_loc, K, mb, ...)``, its clients' rows (``mesh_sampler``).
 
     The step is the driver's round function ``step(params, state, batch,
-    round_key, *, part_mask=None) -> (params, state, {"loss": loss})``:
+    round_key, *, t=None, base_key=None, part_mask=None, fault_spec=None)
+    -> (params, state, metrics)`` (``_make_round_core``):
     ``run_mesh_host_loop`` (``launch.driver.run_host_loop``) feeds it the
-    round key ``fold_in(key, t)`` and, under ``participation=``, the
-    round's cohort mask, the chain the scanned driver uses.  Returns
-    ``(step, pspecs)``."""
+    round key ``fold_in(key, t)`` and the hooks' arguments, the chain the
+    scanned driver uses, when given the same ``participation``,
+    ``buffer`` and ``faults``.  Returns ``(step, pspecs)``."""
     return _make_round_core(model_cfg, safl_cfg, mesh, topology,
                             participation=participation, buffer=buffer,
                             faults=faults, sentinel=sentinel,
                             telemetry=telemetry, microbatch=microbatch,
-                            codec=codec)
+                            codec=codec, num_clients=num_clients)
 
 
 def _fedopt_cfg(safl_cfg: SAFLConfig) -> SAFLConfig:
@@ -397,21 +910,25 @@ def make_safl_scan_fn(model_cfg: ModelConfig, safl_cfg: SAFLConfig, mesh,
                       faults=None, sentinel=None, telemetry=None,
                       microbatch=None, codec=None):
     """The scanned mesh driver: ``launch.driver.run_scan`` bound to this
-    rank's mesh round, its ``mesh_sampler`` and the cohort policy, in
-    chunks of ``num_rounds`` (0 = all in one).  The port compiles nothing,
-    so a chunk is the host loop's rounds with the metrics fetched once per
-    chunk, and chunked and per-round trajectories are bit-identical.
+    rank's mesh round, its ``mesh_sampler``, the cohort policy, the fault
+    policy and the ring's ``t``/base key (``buffer``), in chunks of
+    ``num_rounds`` (0 = all in one).  The port compiles nothing, so a
+    chunk is the host loop's rounds with the metrics fetched once per
+    chunk, and chunked and per-round trajectories are bit-identical.  The
+    round's G is the sampler's ``num_clients`` (one client a client shard
+    when it has none).
 
     Signature of the returned fn: ``(params, opt_state, *, rounds, key,
-    start_round=0, on_chunk=None) -> (params, opt_state, history)``.
-    Returns ``(run, pspecs)``."""
-    core, pspecs = _make_round_core(model_cfg, safl_cfg, mesh, topology,
-                                    participation=participation,
-                                    buffer=buffer, faults=faults,
-                                    sentinel=sentinel, telemetry=telemetry,
-                                    microbatch=microbatch, codec=codec)
+    start_round=0, on_chunk=None, stream=None) -> (params, opt_state,
+    history)``.  Returns ``(run, pspecs)``."""
+    core, pspecs = _make_round_core(
+        model_cfg, safl_cfg, mesh, topology, participation=participation,
+        buffer=buffer, faults=faults, sentinel=sentinel, telemetry=telemetry,
+        microbatch=microbatch, codec=codec,
+        num_clients=getattr(sampler, "num_clients", None))
     return functools.partial(run_scan, core, sampler, chunk_size=num_rounds,
-                             participation=participation), pspecs
+                             participation=participation,
+                             buffer=buffer is not None, faults=faults), pspecs
 
 
 def make_fedopt_scan_fn(model_cfg: ModelConfig, safl_cfg: SAFLConfig, mesh,
@@ -420,6 +937,17 @@ def make_fedopt_scan_fn(model_cfg: ModelConfig, safl_cfg: SAFLConfig, mesh,
     the raw-delta O(d) all-reduce in the same layout)."""
     return make_safl_scan_fn(model_cfg, _fedopt_cfg(safl_cfg), mesh,
                              topology, **kw)
+
+
+class _NoStream:
+    """The ``stream=`` of a rank other than 0: takes every chunk and span
+    and writes nothing."""
+
+    def write_chunk(self, t0: int, hist: dict) -> str:
+        return ""
+
+    def write_span(self, *args, **kwargs) -> None:
+        pass
 
 
 def run_mesh_scan(model_cfg: ModelConfig, safl_cfg: SAFLConfig, mesh, sampler,
@@ -433,23 +961,33 @@ def run_mesh_scan(model_cfg: ModelConfig, safl_cfg: SAFLConfig, mesh, sampler,
     per chunk; ``on_chunk(t_done, params, opt_state, chunk_hist)`` runs
     between chunks.  ``params``/``opt_state`` are this rank's shards,
     ``sampler`` its ``mesh_sampler``.  Every per-round stream (data,
-    cohorts, sketch operators) is a pure function of the absolute round
-    index under ``key``, so a run resumed at ``start_round`` from a
-    checkpoint follows the uninterrupted trajectory bit for bit.
+    cohorts, faults, delays, sketch operators) is a pure function of the
+    absolute round index under ``key``, so a run resumed at
+    ``start_round`` from a checkpoint follows the uninterrupted trajectory
+    bit for bit.
 
-    ``participation=`` (a ``fed.participation`` policy) masks the server
-    aggregation over each round's cohort; ``None`` is the hookless
-    round, and an all-ones mask gives its bits.  ``sketch.kind == "none"``
-    is FedOPT.  Returns ``(params, opt_state, history)`` with host
-    ``(rounds - start_round,)`` arrays."""
-    _refuse_hooks(stream=stream)
+    The hooks, as in the reference: ``participation=`` (a
+    ``fed.participation`` policy; ``None`` is the hookless round and an
+    all-ones mask gives its bits), ``buffer=`` (``opt_state`` is then
+    ``init_mesh_async_state``'s dict; a ``delay="zero"`` buffer gives the
+    hookless bits), ``faults=``/``sentinel=`` (counters beside the loss; a
+    neutral fault policy gives the hookless bits), ``telemetry=``,
+    ``microbatch=`` (``None`` or >= G_loc is the materialized round, bit
+    for bit), ``codec=`` (its measured ``uplink_bits``), and ``stream=``
+    (an ``obs.shards.ShardWriter``: rank 0 writes each chunk's metrics
+    shard and span, the other ranks write nothing, and every rank returns
+    ``history == {}``; parameters and state are the unstreamed run's, bit
+    for bit).  ``sketch.kind == "none"`` is FedOPT.  Returns ``(params,
+    opt_state, history)`` with host ``(rounds - start_round,)`` arrays."""
+    if stream is not None and mesh.rank != 0:
+        stream = _NoStream()
     run, _ = make_safl_scan_fn(
         model_cfg, safl_cfg, mesh, topology, sampler=sampler,
         num_rounds=chunk_size, participation=participation, buffer=buffer,
         faults=faults, sentinel=sentinel, telemetry=telemetry,
         microbatch=microbatch, codec=codec)
     return run(params, opt_state, rounds=rounds, key=key,
-               start_round=start_round, on_chunk=on_chunk)
+               start_round=start_round, on_chunk=on_chunk, stream=stream)
 
 
 def run_mesh_host_loop(step, sampler, params, opt_state, *, rounds: int,
@@ -457,14 +995,17 @@ def run_mesh_host_loop(step, sampler, params, opt_state, *, rounds: int,
                        participation=None, buffer=None, faults=None,
                        sentinel=None):
     """One step call a round (``launch.driver.run_host_loop``), with the
-    scanned driver's exact key/batch/cohort sequence, each round's loss
-    fetched before the next.  ``step`` comes from ``make_safl_train_step``
-    / ``make_fedopt_train_step``, built with the same ``participation``.
-    The trajectories agree with ``run_mesh_scan`` bit for bit."""
-    _refuse_hooks(buffer=buffer, faults=faults, sentinel=sentinel)
+    scanned driver's exact key/batch/cohort/fault sequence, each round's
+    metrics fetched before the next.  ``step`` comes from
+    ``make_safl_train_step`` / ``make_fedopt_train_step``, built with the
+    same hooks (the sentinel is bound into it; ``buffer`` hands the step
+    ``t`` and the base key).  The trajectories agree with
+    ``run_mesh_scan`` bit for bit."""
+    del sentinel
     return run_host_loop(step, sampler, params, opt_state, rounds=rounds,
                          key=key, start_round=start_round,
-                         participation=participation)
+                         participation=participation,
+                         buffer=buffer is not None, faults=faults)
 
 
 # ---------------------------------------------------------------------------

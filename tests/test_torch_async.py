@@ -52,6 +52,7 @@ from test_torch_faults import (FAULT_ROWS, G, KEY, _PortSampler, cls_cfgs,
                                cls_params, cls_sampler, port_batch, r_cls_loss,
                                reference_run, round_fns, rounds_from_reference,
                                t_cls_loss)
+from torch_priority import lower_priority  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -33,6 +33,7 @@ from repro_torch.models.config import ModelConfig as TModel
 from repro_torch.models.model import loss_fn as t_loss
 from test_torch_baselines import _both
 from test_torch_safl import DATA, QUICK_KW, _samplers, _weights
+from torch_priority import lower_priority  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

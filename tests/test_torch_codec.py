@@ -41,6 +41,7 @@ from repro_torch.fed.faults import FaultTable as TFaultTable
 from test_torch_faults import (FAULT_ROWS, G, cls_cfgs, cls_params,
                                cls_sampler, port_batch, reference_run,
                                round_fns, rounds_from_reference)
+from torch_priority import lower_priority  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -22,6 +22,7 @@ from repro_torch.core.intrinsic_dim import intrinsic_dimension, lanczos, make_hv
 from repro_torch.models.config import ModelConfig as TModel
 from repro_torch.models.model import loss_fn as t_loss
 from test_torch_zoo_dense import flat
+from torch_priority import lower_priority  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

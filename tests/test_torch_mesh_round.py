@@ -46,6 +46,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params
 from repro_torch.models.sharding import gather_tree, local_shard
 
+from torch_priority import lower_priority  # noqa: F401 (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODEL_KW = dict(name="meshscan", arch_type="dense", num_layers=1, d_model=32,
                 num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=64)

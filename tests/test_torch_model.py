@@ -30,6 +30,8 @@ from repro_torch.models.model import init_params as t_init
 from repro_torch.models.model import loss_fn as t_loss
 from repro_torch.models.model import param_shapes as t_param_shapes
 
+from torch_priority import lower_priority  # noqa: F401 (autouse)
+
 torch.set_num_threads(2)
 
 QUICK_KW = dict(name="tiny", arch_type="dense", num_layers=2, d_model=64,

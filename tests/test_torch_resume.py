@@ -43,6 +43,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.optim import schedules as tsched
 from test_torch_safl import DATA, QUICK_KW, _cfgs, _samplers
+from torch_priority import lower_priority  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -24,6 +24,7 @@ from repro_torch.models.config import ModelConfig as TModel
 from repro_torch.models.model import loss_fn as t_loss
 from test_torch_safl import (DATA, LOSS_TOL, PARAM_TOL, QUICK_KW, _cfgs,
                              _flat, _samplers, _weights)
+from torch_priority import lower_priority  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

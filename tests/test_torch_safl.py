@@ -52,6 +52,8 @@ from repro_torch.models.model import init_params
 from repro_torch.models.model import loss_fn as t_loss
 from repro_torch.obs import PROBE_KEYS
 
+from torch_priority import lower_priority  # noqa: F401 (autouse)
+
 torch.set_num_threads(2)
 
 ROUNDS = 3

@@ -26,6 +26,8 @@ from repro_torch.core import sketch as tsk
 from repro_torch.models.config import ModelConfig as TModel
 from repro_torch.models.model import param_shapes as t_param_shapes
 
+from torch_priority import lower_priority  # noqa: F401 (autouse)
+
 torch.set_num_threads(2)
 
 # sums of the same float32 terms in another order (segment sums of a few
@@ -63,29 +65,6 @@ def _flat(tree):
 
 def _t(tree):
     return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
-
-
-@pytest.mark.parametrize("kw", CONFIGS)
-@pytest.mark.parametrize("mode", MODES)
-def test_per_leaf_sketch_tree_matches_reference(kw, mode):
-    rcfg, tcfg = _cfgs(kw, mode)
-    nested, flat = _tree()
-
-    @jax.jit        # one compile: eager dispatch would compile every op
-    def ref(key, tree):
-        s = rsk.sketch_tree(rcfg, key, tree)
-        return s, rsk.desketch_tree(rcfg, key, s, tree)
-
-    rs, rd = ref(jax.random.key(3), nested)
-    ts = tsk.sketch_tree(tcfg, prng.key(3), _t(flat))
-    if mode == "concat":
-        np.testing.assert_allclose(ts.numpy(), np.asarray(rs), **TOL)
-    else:
-        for k, v in _flat(rs).items():
-            np.testing.assert_allclose(ts[k].numpy(), v, **TOL)
-    td = tsk.desketch_tree(tcfg, prng.key(3), ts, _t(flat))
-    for k, v in _flat(rd).items():
-        np.testing.assert_allclose(td[k].numpy(), v, **TOL)
 
 
 @pytest.mark.parametrize("kw", CONFIGS)

@@ -10,6 +10,7 @@ import torch
 from repro.configs import bert_100m as rbert
 from repro_torch.configs import bert_100m as tbert
 from test_torch_round import one_round
+from torch_priority import lower_priority  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

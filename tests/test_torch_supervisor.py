@@ -57,6 +57,7 @@ from repro_torch.launch.supervisor import (SupervisorConfig, SupervisorError,
                                            run_supervised)
 from test_torch_obs import (G, PortLinear, RefLinear, TransientFaults, linear_cfgs,
                             port_setup, r_linear, t_linear)
+from torch_priority import lower_priority  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

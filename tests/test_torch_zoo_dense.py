@@ -34,6 +34,8 @@ from repro_torch.models.model import init_params
 from repro_torch.models.model import loss_fn as t_loss
 from repro_torch.models.model import param_shapes as t_shapes
 
+from torch_priority import lower_priority  # noqa: F401 (autouse)
+
 torch.set_num_threads(2)
 
 ATTN_ARCHS = ["whisper_large_v3", "qwen2_vl_7b", "h2o_danube_1_8b",

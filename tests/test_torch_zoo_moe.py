@@ -25,6 +25,7 @@ from repro_torch.models.model import init_params as t_init
 from repro_torch.models.model import loss_fn as t_loss
 from test_torch_zoo_dense import (check_against_reference, layer0_params,
                                   smoke_batch)
+from torch_priority import lower_priority  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

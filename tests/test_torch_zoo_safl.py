@@ -15,6 +15,7 @@ from repro_torch.core.safl import SAFLConfig, init_safl, safl_round
 from repro_torch.core.sketch import SketchConfig
 from repro_torch.models.model import count_params_analytic, init_params, loss_fn
 from test_torch_round import one_round
+from torch_priority import lower_priority  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

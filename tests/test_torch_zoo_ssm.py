@@ -16,6 +16,7 @@ from repro.configs import get_config as r_config
 from repro_torch.configs import get_config as t_config
 from test_torch_zoo_dense import (check_against_reference, layer0_params,
                                   smoke_batch)
+from torch_priority import lower_priority  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
