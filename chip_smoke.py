@@ -129,6 +129,24 @@ Phases (any failed check or exception exits nonzero):
    a breakdown of a round (gather, ``client_delta``,
    ``derive_round_params``, sketch, ``all_reduce``, desk,
    ``apply_update``) and every rank's peak memory.
+14. sharded serving on the mesh (``launch/train.py``'s
+   ``make_serve_step``/``make_prefill_step`` with a live mesh,
+   ``models/parallel.py``; no TPU kernel on this path: each rank's launch
+   counts are set to 0 before it and printed after), the same four ranks
+   sharing the card: (a) every SMOKE arch's decode teacher-forced for 16
+   steps at B = 4, max_seq 32 in the default, FSDP and flat layouts, the
+   logits and the gathered caches against the one-process ``decode_step``
+   on the card, and its prefill's blocks (default and FSDP) against
+   ``make_prefill_step``, within phase 3's tolerance; (b) llama3.2-1b at
+   full width and depth in bfloat16 in the default and flat layouts, each
+   rank's blocks drawn leaf by leaf (the whole weights are never on a
+   rank): 8 requests of a 32-token ``synthetic_lm_batch`` prompt and 96
+   greedy tokens (max_seq 128), each rank's weight and cache bytes
+   against ``param_shapes``/``cache_shapes``, its peak memory, rank 0's
+   ms a step (CUDA events) and the share of 8 greedy steps spent inside
+   the collectives (gloo), the share of greedy tokens equal to the
+   one-process ``serve.run``'s, and 8 float32 teacher-forced steps against
+   the one-process float32 decode (12a's tolerance, and within 1e-4).
 
 Phases 4, 5, 6, 8b and 11b end with a breakdown of one round's time by step,
 and check each round's uplink bits (per-client payload times the
@@ -228,12 +246,14 @@ from repro_torch.launch.supervisor import (SupervisorConfig,  # noqa: E402
                                            run_supervised)
 from repro_torch.models import layers as layers_module  # noqa: E402
 from repro_torch.models import model as model_module  # noqa: E402
+from repro_torch.models import parallel  # noqa: E402
 from repro_torch.models import sharding  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.sharding import gather_tree, local_shard  # noqa: E402
 from repro_torch.models.model import (_cache_dtype, _logits,  # noqa: E402
                                      cache_shapes, decode_step, forward,
-                                     init_params, loss_fn, param_shapes)
+                                     init_cache, init_params, loss_fn,
+                                     param_shapes)
 from repro_torch.obs import REQUIRED_KEYS, ShardWriter, Telemetry  # noqa: E402
 from repro_torch.obs import telemetry as telemetry_module  # noqa: E402
 from repro_torch.obs import write_manifest  # noqa: E402
@@ -3073,6 +3093,355 @@ def phase_mesh() -> dict[str, int]:
             "countsketch_mesh_g4": hooked[4]}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: sharded serving on the mesh
+# ---------------------------------------------------------------------------
+
+# (name, serve layout, fsdp): dryrun's --serve-layout values, and FSDP
+SERVE_MESH_LAYOUTS = (("default", "default", False), ("fsdp", "default", True),
+                      ("flat", "flat", False))
+SERVE_MESH_B, SERVE_MESH_MAX_SEQ = 4, 32    # 14a: every SMOKE arch
+SERVE_MESH_STEPS, SERVE_MESH_PREFILL = 16, 16   # 14a: decode steps, prefill tokens
+SERVE_MESH_FULL = ("default", "flat")       # 14b's layouts
+SERVE_MESH_F32_STEPS = 8    # 14b: float32 steps teacher-forced on the prompt
+SERVE_MESH_TIMED = 8        # 14b: greedy steps run with the collectives timed
+                            # (left out of the median ms a step)
+# 14b's float32 gap to the one-process decode, besides 12a's tolerance: sums
+# in another order give ~1e-5 (PERF.md); a sum or a softmax done in
+# bfloat16 would be ~1e-2 off
+SERVE_MESH_F32_ATOL = 1e-4
+
+
+def outside_tol(got: torch.Tensor, want: torch.Tensor) -> tuple[float, int]:
+    """(max abs diff, entries outside phase 3's tolerance)."""
+    got, want = got.float(), want.float()
+    return (float((got - want).abs().max()),
+            int((~torch.isclose(got, want, rtol=TRAJ_RTOL, atol=TRAJ_ATOL)).sum()))
+
+
+def rank_rows(mesh, t: torch.Tensor, entry) -> torch.Tensor:
+    """This rank's rows of ``t`` (its batch dim cut as ``entry``)."""
+    return local_shard(mesh, {"t": t}, {"t": (entry,) + (None,) * (t.dim() - 1)})["t"]
+
+
+def serve_mesh_smoke(mesh) -> dict:
+    """14a on a rank: every SMOKE arch's decode in each layout, teacher-
+    forced from the same weights as the one-process ``decode_step`` this
+    rank runs on its device, the logits and the gathered caches against
+    it; the prefill's blocks against ``make_prefill_step``'s logits."""
+    dev = mesh.device
+    B, max_seq, steps = SERVE_MESH_B, SERVE_MESH_MAX_SEQ, SERVE_MESH_STEPS
+    out = {}
+    for arch in ARCHS:
+        model = get_config(arch, smoke=True)
+        params = init_params(model, torch.Generator().manual_seed(0), device=dev)
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, model.vocab_size, (B, steps), generator=gen).to(dev)
+        audio = (torch.randn((B, model.encoder_seq, model.d_model), generator=gen)
+                 * 0.02).to(dev)
+        cache = init_cache(model, B, max_seq, dev)
+        if model.encoder_layers:
+            model_module.encode_for_decode(model, params, cache, audio)
+        want = torch.stack([decode_step(model, params, cache, tokens[:, t:t + 1],
+                                        torch.tensor(t, device=dev))[0]
+                            for t in range(steps)])
+        res = {}
+        for name, layout, fsdp in SERVE_MESH_LAYOUTS:
+            step = mesh_train.make_serve_step(model, mesh, layout=layout, fsdp=fsdp,
+                                              batch=B, max_seq=max_seq)
+            par = step.par
+            entry = mesh_train.serve_specs(model, mesh, B, max_seq, layout=layout,
+                                           fsdp=fsdp)[2][0]
+            lp = local_shard(mesh, params, par.pspecs)
+            lc = local_shard(mesh, init_cache(model, B, max_seq, dev), par.cspecs)
+            rows = rank_rows(mesh, tokens, entry)
+            if model.encoder_layers:
+                parallel.encode_for_decode(par, lp, lc, rank_rows(mesh, audio, entry))
+            got = torch.stack([step(lp, lc, rows[:, t:t + 1], torch.tensor(t, device=dev))[0]
+                               for t in range(steps)])
+            got = gather_tree(mesh, {"l": got}, {"l": (None, entry, None)})["l"]
+            whole = gather_tree(mesh, lc, par.cspecs)
+            errs = [outside_tol(got, want)] + [outside_tol(whole[k], cache[k]) for k in cache]
+            res[name] = (max(e for e, _ in errs), sum(n for _, n in errs))
+        batch = {"tokens": torch.randint(0, model.vocab_size, (B, SERVE_MESH_PREFILL),
+                                         generator=gen).to(dev)}
+        if model.frontend == "vision":
+            batch["patch_embeds"] = torch.randn(
+                (B, model.num_frontend_tokens, model.d_model), generator=gen).to(dev)
+        if model.encoder_layers:
+            batch["audio_embeds"] = audio
+        want = mesh_train.make_prefill_step(model)(params, batch)
+        bspecs = mesh_train.infer_batch_pspecs(batch, mesh_train.data_axes_of(mesh), mesh)
+        for fsdp in (False, True):
+            step = mesh_train.make_prefill_step(model, mesh, fsdp=fsdp, batch=B)
+            blk = step(local_shard(mesh, params, step.par.pspecs),
+                       local_shard(mesh, batch, bspecs))
+            cut = local_shard(mesh, {"l": want}, {"l": (bspecs["tokens"][0], "model")})["l"]
+            err, n = outside_tol(blk, cut)
+            every = _every_rank(mesh, [err, n, float(blk.shape == cut.shape)])
+            res[f"prefill/{'fsdp' if fsdp else 'default'}"] = (
+                max(r[0] for r in every), int(sum(r[1] for r in every)),
+                all(r[2] == 1.0 for r in every))
+        out[arch] = res
+    return out
+
+
+def shard_init(mesh, model: ModelConfig, pspecs: dict, dev) -> dict:
+    """This rank's blocks of ``init_params(model, a generator seeded 0 on
+    dev)``: each leaf drawn in ``init_params``'s order, cut, and dropped,
+    so no rank holds the whole weights."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for path, shape in param_shapes(model).items():
+        leaf = model_module._init_leaf(gen, path, shape, model)
+        out[path] = leaf[sharding._block(mesh, shape, pspecs[path])].clone()
+        del leaf
+    return out
+
+
+def block_bytes(mesh, shapes: dict, specs: dict, dtype_of) -> int:
+    """The bytes of this rank's blocks of leaves of ``shapes`` under ``specs``."""
+    return sum(math.prod(s.stop - s.start for s in sharding._block(mesh, shape, specs[k]))
+               * torch.empty((), dtype=dtype_of(k)).element_size()
+               for k, shape in shapes.items())
+
+
+class CollectiveClock:
+    """Host time inside the sharded path's collectives (``models.parallel``'s
+    all_reduce, all_gather and all_to_all), each between two device
+    synchronisations, while inside the ``with``."""
+
+    NAMES = ("_all_reduce", "_all_gather", "_all_to_all")
+
+    def __init__(self, dev):
+        self.dev, self.seconds, self.calls = dev, 0.0, 0
+
+    def _sync(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    def __enter__(self):
+        self.orig = {n: getattr(parallel, n) for n in self.NAMES}
+        for n, fn in self.orig.items():
+            setattr(parallel, n, self._wrap(fn))
+        return self
+
+    def _wrap(self, fn):
+        def timed(*args, **kwargs):
+            self._sync()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self._sync()
+            self.seconds += time.perf_counter() - t
+            self.calls += 1
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(parallel, n, fn)
+
+
+def serve_mesh_full(mesh, model: ModelConfig, prompt: torch.Tensor,
+                    f32_path: str) -> dict:
+    """14b on a rank: ``model`` served from the rank's blocks in each of
+    ``SERVE_MESH_FULL``'s layouts (the prompt teacher-forced, then greedy
+    tokens to ``SERVE_MAX_SEQ``); each step timed on the device, the
+    first ``SERVE_MESH_TIMED`` greedy steps also with the collectives
+    timed; the blocks' bytes and the peak memory; then the same blocks in
+    float32, teacher-forced on the prompt, the logits (rank 0) against the
+    one-process float32 decode's, saved at ``f32_path``."""
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    B, P = prompt.shape
+    calls = SERVE_MAX_SEQ - 1
+    model32 = dataclasses.replace(model, dtype=torch.float32)
+    res = {}
+    for layout in SERVE_MESH_FULL:
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        step = mesh_train.make_serve_step(model, mesh, layout=layout, batch=B,
+                                          max_seq=SERVE_MAX_SEQ)
+        par = step.par
+        entry = mesh_train.serve_specs(model, mesh, B, SERVE_MAX_SEQ, layout=layout)[2][0]
+        lp = shard_init(mesh, model, par.pspecs, dev)
+        shapes = cache_shapes(model, B, SERVE_MAX_SEQ)
+
+        def zero_cache(m):
+            return {k: torch.zeros([sl.stop - sl.start for sl in
+                                    sharding._block(mesh, s, par.cspecs[k])],
+                                   dtype=_cache_dtype(m, k), device=dev)
+                    for k, s in shapes.items()}
+        lc = zero_cache(model)
+        nbytes = [sum(v.numel() * v.element_size() for v in lp.values()),
+                  block_bytes(mesh, param_shapes(model), par.pspecs, lambda k: model.dtype),
+                  sum(v.numel() * v.element_size() for v in lc.values()),
+                  block_bytes(mesh, shapes, par.cspecs, lambda k: _cache_dtype(model, k))]
+        if cuda:
+            torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        setup_peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        rows = rank_rows(mesh, prompt.to(dev), entry)
+        seq = torch.zeros((rows.shape[0], SERVE_MAX_SEQ), dtype=torch.int64, device=dev)
+        seq[:, :P] = rows
+        positions = torch.arange(calls, device=dev)
+        clock, timed_s, marks = CollectiveClock(dev), 0.0, []
+        for t in range(calls):
+            if cuda:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+            if P <= t < P + SERVE_MESH_TIMED:
+                with clock:
+                    clock._sync()
+                    t1 = time.perf_counter()
+                    logits, lc = step(lp, lc, seq[:, t:t + 1], positions[t])
+                    clock._sync()
+                    timed_s += time.perf_counter() - t1
+            else:
+                logits, lc = step(lp, lc, seq[:, t:t + 1], positions[t])
+            if t >= P - 1:
+                seq[:, t + 1] = torch.argmax(logits, dim=-1)
+        if cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            torch.cuda.synchronize(dev)
+        step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+        tokens = gather_tree(mesh, {"t": seq}, {"t": (entry, None)})["t"]
+        del lc, logits
+        lp = {k: v.float() for k, v in lp.items()}
+        step32 = mesh_train.make_serve_step(model32, mesh, layout=layout, batch=B,
+                                            max_seq=SERVE_MAX_SEQ)
+        lc = zero_cache(model32)
+        got = torch.stack([step32(lp, lc, seq[:, t:t + 1], positions[t])[0]
+                           for t in range(SERVE_MESH_F32_STEPS)])
+        got = gather_tree(mesh, {"l": got}, {"l": (None, entry, None)})["l"]
+        f32 = None
+        if mesh.rank == 0:
+            want = torch.load(f32_path).to(dev)
+            f32 = (float((got - want).abs().max()),
+                   bool(torch.allclose(got, want, **DECODE_FWD_TOL)))
+        del lp, lc, got
+        res[layout] = dict(step_ms=step_ms, tokens=tokens.cpu(), f32=f32,
+                           ranks=_every_rank(mesh, nbytes + [setup_peak, peak, setup_s]),
+                           timed_ms=1e3 * timed_s / SERVE_MESH_TIMED,
+                           coll_share=clock.seconds / timed_s,
+                           coll_calls=clock.calls / SERVE_MESH_TIMED)
+    return res
+
+
+def serve_mesh_rank(mesh, prompt: torch.Tensor, f32_path: str) -> dict:
+    """A rank of phase 14 on the card: 14a, then 14b at llama3.2-1b's full
+    width and depth; with the TPU kernels' counterparts' launches in this
+    process (the path reaches none)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counts = (cs.LAUNCHES, fw.LAUNCHES, *gs.LAUNCHES.values())
+    for c in counts:
+        c.n = 0
+    t0 = time.perf_counter()
+    smoke = serve_mesh_smoke(mesh)
+    t1 = time.perf_counter()
+    full = serve_mesh_full(mesh, llama3_2_1b.CONFIG, prompt, f32_path)
+    return {"smoke": smoke, "full": full, "seconds": (t1 - t0, time.perf_counter() - t1),
+            "launches": _every_rank(mesh, [float(sum(c.n for c in counts))])}
+
+
+def phase_serve_mesh() -> None:
+    """Phase 14: sharded serving (``make_serve_step``/``make_prefill_step``
+    with a live mesh, ``models/parallel.py``) on four ranks sharing the
+    card through gloo: (a) every SMOKE arch in the default, FSDP and flat
+    layouts against the one-process steps on the card; (b) llama3.2-1b at
+    full width and depth in bfloat16 in the default and flat layouts,
+    against the one-process ``serve.run`` (greedy tokens) and, in float32,
+    the one-process decode (logits)."""
+    print("== phase 14: sharded serving on the mesh, one-process references ==")
+    t0 = time.perf_counter()
+    model = llama3_2_1b.CONFIG
+    params = init_params(model, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    prompt = synthetic_lm_batch(prng.key(12), SERVE_BATCH, SERVE_PROMPT,
+                                model.vocab_size, "cuda")["tokens"]
+    one = serve.run(model, params=params, batch=SERVE_BATCH, steps=SERVE_NEW,
+                    max_seq=SERVE_MAX_SEQ, prompt=prompt, device="cuda")
+    one_ms = statistics.median(one["step_ms"][SERVE_WARMUP:])
+    params = {k: params[k].float() for k in list(params)}
+    out32 = serve.run(dataclasses.replace(model, dtype=torch.float32), params=params,
+                      batch=SERVE_BATCH, steps=1, max_seq=SERVE_MAX_SEQ,
+                      prompt=prompt[:, :SERVE_MESH_F32_STEPS], device="cuda",
+                      keep_logits=True)
+    del params
+    world = math.prod(MESH_GRID[0])
+    where = ("sharing the card (gloo)" if choose_backend(world, "cuda") == "gloo"
+             else "a card each (NCCL)")
+    with tempfile.TemporaryDirectory(prefix="serve_mesh_") as tmp:
+        f32_path = os.path.join(tmp, "logits32.pt")
+        torch.save(out32["all_logits"].cpu(), f32_path)
+        del out32
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        print(f"one-process references {t1 - t0:.1f} s; {world} ranks {where}")
+        got = spawn(serve_mesh_rank, *MESH_GRID, prompt.cpu(), f32_path, device="cuda",
+                    timeout=900)
+    print(f"phase 14 ranks {time.perf_counter() - t1:.1f} s (14a {got['seconds'][0]:.1f} s, "
+          f"14b {got['seconds'][1]:.1f} s on rank 0)")
+    print("== phase 14a: every SMOKE arch sharded on (data 2, model 2), against one "
+          "process on the card ==")
+    for arch, res in got["smoke"].items():
+        print(f"{arch}: " + "; ".join(
+            f"{name} max abs diff {v[0]:.3e}, outside {v[1]}" for name, v in res.items()))
+        for name, v in res.items():
+            check(v[1] == 0 and (len(v) < 3 or v[2]),
+                  f"{arch} sharded {name}: differs from the one-process step")
+    print(f"== phase 14b: llama3.2-1b at full width and depth, {SERVE_BATCH} requests x "
+          f"({SERVE_PROMPT} prompt + {SERVE_NEW} new) tokens, {world} ranks {where} ==")
+    for layout, r in got["full"].items():
+        w_have, w_want, c_have, c_want = (int(x) for x in r["ranks"][0][:4])
+        timed = range(SERVE_PROMPT, SERVE_PROMPT + SERVE_MESH_TIMED)
+        ms = [m for t, m in enumerate(r["step_ms"]) if t >= SERVE_WARMUP and t not in timed]
+        new = [m for t, m in enumerate(r["step_ms"]) if t >= SERVE_PROMPT - 1
+               and t not in timed]
+        same = (r["tokens"] == one["tokens"].cpu())[:, SERVE_PROMPT:]
+        print(f"llama3.2-1b {layout}: rank 0 median {statistics.median(ms):.3f} ms a step "
+              f"(min {min(ms):.3f}, max {max(ms):.3f}; one process {one_ms:.3f}); "
+              f"{SERVE_BATCH * len(new) / (sum(new) / 1e3):.0f} new tokens/s (steps "
+              f"without the clock); {SERVE_MESH_TIMED} steps with the collectives timed "
+              f"{r['timed_ms']:.3f} ms a step, {r['coll_calls']:.0f} collective calls a "
+              f"step, {100 * r['coll_share']:.1f}% of it inside them")
+        for i, rk in enumerate(r["ranks"]):
+            print(f"  rank {i}: weight blocks {int(rk[0]):,} bytes (param_shapes: "
+                  f"{int(rk[1]):,}), cache blocks {int(rk[2]):,} (cache_shapes: "
+                  f"{int(rk[3]):,}); peak {rk[4]:.2f} GiB set-up, {rk[5]:.2f} GiB "
+                  f"serving; set-up {rk[6]:.1f} s")
+            check(rk[0] == rk[1] and rk[2] == rk[3],
+                  f"llama3.2-1b {layout}: rank {i}'s blocks differ from the layout")
+        print(f"llama3.2-1b {layout}: of the bytes of the whole model {w_have / sum(
+              math.prod(s) * 2 for s in param_shapes(model).values()):.4f}, of the "
+              f"cache {c_have / cache_nbytes(model, SERVE_BATCH, SERVE_MAX_SEQ):.4f}; "
+              f"{int(same.sum())} of {same.numel()} greedy tokens equal the one-process "
+              f"serve.run's ({100 * float(same.float().mean()):.1f}%; not checked: bf16 "
+              f"sums in another order)")
+        check(torch.equal(r["tokens"][:, :SERVE_PROMPT], prompt.cpu()),
+              f"llama3.2-1b {layout}: the prompt came back changed")
+        err, ok = r["f32"]
+        print(f"llama3.2-1b {layout}: float32, {SERVE_MESH_F32_STEPS} teacher-forced "
+              f"steps against the one-process decode: max abs diff {err:.3e} (rtol "
+              f"{DECODE_FWD_TOL['rtol']}, atol {DECODE_FWD_TOL['atol']}): {ok}; "
+              f"within {SERVE_MESH_F32_ATOL:g}: {err <= SERVE_MESH_F32_ATOL}")
+        check(ok, f"llama3.2-1b {layout}: float32 sharded decode differs")
+        check(err <= SERVE_MESH_F32_ATOL,
+              f"llama3.2-1b {layout}: float32 sharded decode further than "
+              f"{SERVE_MESH_F32_ATOL:g} from the one-process decode")
+    launches = int(sum(r[0] for r in got["launches"]))
+    print(f"phase 14 {time.perf_counter() - t0:.1f} s; the sharded serving path launched "
+          f"{launches} of the TPU kernels' counterparts (it reaches none)")
+
+
 # the probes card against CPU: float32 sums over ~3e5 coordinates in other
 # orders, and AMSGrad's moments after the noise of phase 3's tolerance
 MESH_PROBE_RTOL = 1e-3
@@ -3295,6 +3664,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, calls in phase_mesh().items():
         by_name[name]["launches"] = calls
+    torch.cuda.empty_cache()
+    phase_serve_mesh()
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")

@@ -1,10 +1,15 @@
-"""SAFL training on the mesh (``torch.distributed``), and the single-host trainer.
+"""SAFL training and serving on the mesh (``torch.distributed``), and the
+single-host trainer.
 
 Counterpart of ``repro/launch/train.py``: the mesh layout helpers, the
 shard-local sketch with its one payload ``all_reduce`` a round, the SAFL
 and FedOPT mesh steps with every federated hook, the scanned driver
 ``run_mesh_scan`` and the host-loop driver ``run_mesh_host_loop`` in the
-three topologies, and ``train_loop``.
+three topologies, the serving steps (``make_prefill_step``,
+``make_serve_step``: one process, or each rank on its own blocks through
+``models.parallel``) with the reference's serving layouts
+(``infer_batch_pspecs``, ``cache_pspecs``, ``flat_tp_pspecs``,
+``flat_tp_cache_pspecs``), and ``train_loop``.
 
 The FL topology maps onto the mesh (DESIGN §3): the clients are split
 row-major over the client axes (the (pod, data) indices in
@@ -36,8 +41,9 @@ partitioner, so every rank of a client group runs the whole client step on
 the gathered weights (its numbers are the unsharded step's, as the
 reference's are up to summation order).  Tensor-parallel and FSDP compute
 inside the client step (so that no rank holds a whole replica) is left
-for later (ROADMAP A-11 step 3); it matters only on more than one card,
-and jamba and deepseek-v3 at full width exceed one card even as one block.
+for later (ROADMAP A-11 step 4, with ``models.parallel``'s layers); it
+matters only on more than one card, and jamba and deepseek-v3 at full
+width exceed one card even as one block.
 
 The hooks act on a rank's own rows and shards, each with the reference's
 collectives:
@@ -108,7 +114,9 @@ from repro_torch.fed.robust import (carry_if_empty, divergence_flag,
                                     sentinel_validity, tree_where)
 from repro_torch.launch.driver import run_host_loop, run_scan
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import init_params, loss_fn, param_shapes
+from repro_torch.models import parallel
+from repro_torch.models.model import (_cache_dtype, cache_shapes, decode_step,
+                                      forward, init_params, loss_fn, param_shapes)
 from repro_torch.models.sharding import (_entry_axes, gather_tree,
                                          local_shard, param_pspecs)
 from repro_torch.obs.telemetry import effective_cohort
@@ -644,8 +652,7 @@ def _mesh_pspecs(model_cfg: ModelConfig, topology: str):
     """(abstract params as ``meta`` tensors, their specs) of a topology:
     model-sharded (cross_device), replicated (cross_device_dp), or model-
     and FSDP-sharded (cross_silo)."""
-    abstract = {k: torch.empty(s, dtype=model_cfg.dtype, device="meta")
-                for k, s in param_shapes(model_cfg).items()}
+    abstract = _meta_params(model_cfg)
     if topology == "cross_device_dp":
         pspecs = {k: (None,) * len(p.shape) for k, p in abstract.items()}
     else:
@@ -1009,6 +1016,114 @@ def run_mesh_host_loop(step, sampler, params, opt_state, *, rounds: int,
 
 
 # ---------------------------------------------------------------------------
+# serving steps: one process, or each rank on its own shards
+# ---------------------------------------------------------------------------
+
+def _spec_entry(axes):
+    """A spec entry for a dim cut over ``axes``: the name, a tuple of two
+    or more names, or None (as a ``PartitionSpec`` reads back)."""
+    axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+    axes = tuple(a for a in axes if a is not None)
+    return (axes[0] if len(axes) == 1 else axes) if axes else None
+
+
+def _meta_params(model_cfg: ModelConfig) -> dict:
+    return {k: torch.empty(s, dtype=model_cfg.dtype, device="meta")
+            for k, s in param_shapes(model_cfg).items()}
+
+
+def _meta_cache(model_cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    return {k: torch.empty(s, dtype=_cache_dtype(model_cfg, k), device="meta")
+            for k, s in cache_shapes(model_cfg, batch, max_seq).items()}
+
+
+def make_prefill_step(model_cfg: ModelConfig, mesh=None, *, fsdp: bool = False,
+                      batch: Optional[int] = None):
+    """The prefill step: ``forward`` (the reference's with ``remat=False``;
+    the port's has no remat), then the last token's logits through the
+    tied or untied head, (B, padded vocab).
+
+    With a live ``mesh`` (``batch``: the global batch size), the step
+    ``step(local_params, local_batch)`` runs ``models.parallel.forward`` on
+    the rank's blocks under ``param_pspecs(fsdp=fsdp)`` and its rows of
+    the batch (``infer_batch_pspecs``), and returns its (B_loc, V_loc)
+    block, the reference's ``out_shardings=P(daxes, "model")``.  The
+    step's ``par`` holds its layout (``par.pspecs`` for ``local_shard``)."""
+    if mesh is None:
+        def step(params, batch):
+            h, _ = forward(model_cfg, params, batch)
+            head = (params["embed"].T if model_cfg.tie_embeddings
+                    else params["lm_head"])
+            return h[:, -1] @ head                  # (B, V) last-token logits
+        return step
+    daxes = data_axes_of(mesh)
+    tokens = torch.empty((int(batch), 1), device="meta")
+    bspec = infer_batch_pspecs({"tokens": tokens}, daxes, mesh)["tokens"]
+    par = parallel.Par(mesh, model_cfg, param_pspecs(_meta_params(model_cfg), fsdp=fsdp),
+                       {}, batch_axes=_entry_axes(bspec[0]), fsdp=fsdp)
+
+    def step(local_params, local_batch):
+        return parallel.prefill_logits(par, local_params, local_batch)
+    step.par = par
+    return step
+
+
+SERVE_LAYOUTS = ("default", "flat")      # dryrun's --serve-layout
+
+
+def serve_specs(model_cfg: ModelConfig, mesh, batch: int, max_seq: int, *,
+                layout: str = "default", fsdp: bool = False) -> tuple:
+    """(weights' specs, cache's specs, tokens' spec) of a decode layout, as
+    ``launch/dryrun.py`` lays the serve step out: ``param_pspecs`` with
+    the cache over ``cache_pspecs`` (the tokens' batch over the data axes
+    where it divides), or ``flat_tp_pspecs`` with ``flat_tp_cache_pspecs``.
+    Under the flat layout every rank takes the whole (B, 1) tokens: the
+    cache's batch is replicated (the reference hands GSPMD batch-sharded
+    tokens and its partitioner gathers them)."""
+    if layout not in SERVE_LAYOUTS:
+        raise ValueError(f"unknown serve layout {layout!r}; one of {SERVE_LAYOUTS}")
+    pspecs = param_pspecs(_meta_params(model_cfg), fsdp=fsdp)
+    cache = _meta_cache(model_cfg, batch, max_seq)
+    if layout == "flat":
+        return (flat_tp_pspecs(pspecs), flat_tp_cache_pspecs(cache, mesh),
+                (None, None))
+    daxes = data_axes_of(mesh)
+    tok = _spec_entry(daxes) if batch % _axes_size(mesh, daxes) == 0 else None
+    return pspecs, cache_pspecs(cache, daxes, mesh), (tok, None)
+
+
+def make_serve_step(model_cfg: ModelConfig, mesh=None, *, layout: str = "default",
+                    fsdp: bool = False, batch: Optional[int] = None,
+                    max_seq: Optional[int] = None):
+    """The decode step ``step(params, cache, tokens, pos)``: the port's
+    ``decode_step``.
+
+    With a live ``mesh`` (``batch``, ``max_seq``: the global batch and
+    cache length the layout is cut for), the step
+    ``step(local_params, local_cache, local_tokens, pos)`` runs
+    ``models.parallel.decode_step`` on the rank's blocks under
+    ``serve_specs(layout=, fsdp=)`` and returns (its rows of the logits,
+    every column; its cache blocks, written in place).  The step's ``par``
+    holds the layout: ``par.pspecs``/``par.cspecs`` for ``local_shard``,
+    and ``parallel.encode_for_decode(step.par, ...)`` fills an
+    encoder-decoder's cross-attention blocks."""
+    if mesh is None:
+        def step(params, cache, tokens, pos):
+            return decode_step(model_cfg, params, cache, tokens, pos)
+        return step
+    pspecs, cspecs, tspec = serve_specs(model_cfg, mesh, int(batch), int(max_seq),
+                                        layout=layout, fsdp=fsdp)
+    par = parallel.Par(mesh, model_cfg, pspecs, cspecs,
+                       batch_axes=_entry_axes(tspec[0]), flat=layout == "flat",
+                       fsdp=fsdp)
+
+    def step(local_params, local_cache, local_tokens, pos):
+        return parallel.decode_step(par, local_params, local_cache, local_tokens, pos)
+    step.par = par
+    return step
+
+
+# ---------------------------------------------------------------------------
 # layout records
 # ---------------------------------------------------------------------------
 
@@ -1034,6 +1149,101 @@ def batch_pspecs(batch_tree, mesh, topology: str = "cross_device") -> dict:
     return out
 
 
+def infer_batch_pspecs(batch_tree, data_axes, mesh=None) -> dict:
+    """Inference batch: leading batch dim over (pod, data); left replicated
+    when the batch does not divide the axes (e.g. long_500k with B=1)."""
+    out = {}
+    for k, x in batch_tree.items():
+        axes = _spec_entry(data_axes)
+        if mesh is not None and x.shape[0] % _axes_size(mesh, data_axes):
+            axes = None
+        out[k] = (axes,) + (None,) * (len(x.shape) - 1)
+    return out
+
+
+def _fit(spec: tuple, shape, mesh) -> tuple:
+    """Drop the axes of any entry whose dim they do not divide (e.g.
+    whisper's 1500-frame cross cache on a 16-way model axis)."""
+    if mesh is None:
+        return spec
+    return tuple(None if e is None or d % _axes_size(mesh, _entry_axes(e)) else e
+                 for d, e in zip(shape, spec))
+
+
+def cache_pspecs(cache_tree, data_axes, mesh=None) -> dict:
+    """KV caches are sequence-sharded over the model axis (flash-decoding
+    style partial softmax); SSM state shards d_inner.  The batch dim falls
+    back to replicated when it does not divide the data axes.  k/v/xk/xv
+    (nb, B, S, Hk, hd) and ckv/kpe (nb, B, S, r) cut S, Mamba's h (nb, B,
+    di, ds) dim 2, its conv (nb, B, kw - 1, di) dim 3."""
+    out = {}
+    for path, leaf in cache_tree.items():
+        name = path.rpartition("/")[2]
+        nd = len(leaf.shape)
+        baxes = _spec_entry(data_axes)
+        if mesh is not None and leaf.shape[1] % _axes_size(mesh, data_axes):
+            baxes = None
+        if name in ("k", "v", "xk", "xv"):
+            sp = (None, baxes, "model", None, None)
+        elif name in ("ckv", "kpe", "h"):
+            sp = (None, baxes, "model", None)
+        elif name == "conv":
+            sp = (None, baxes, None, "model")
+        else:
+            sp = (None,) * nd
+        out[path] = _fit(sp[:nd], leaf.shape, mesh)
+    return out
+
+
+# the weights the flat layout cuts on their contracting dim
+_FLAT_W = {"wq", "wk", "wv", "wo", "wi", "wg", "w_dq", "w_uq", "w_dkv",
+           "w_kr", "w_uk", "w_uv", "lm_head", "mtp_head", "router",
+           "x_proj", "dt_proj", "out_proj", "wx", "wz"}
+_FLAT_TP = ("data", "model")
+
+
+def flat_tp_pspecs(pspecs, params_abs=None) -> dict:
+    """Beyond-paper serving layout: fold the data axis into the model axis
+    (pure TP over data x model), sharding every weight's CONTRACTING
+    (input) dim, so the weights stay resident and the cache sequence-
+    sharded; every matmul sums its (batch x features) decode activation.
+    Stacked MoE experts (nb, E, in, out) are cut over E, the embedding
+    over V; the rest is replicated."""
+    out = {}
+    for path, p in pspecs.items():
+        parts = path.split("/")
+        name, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
+        nd = len(p)
+        if name in ("wi", "wg", "wo") and parent == "moe" and nd >= 3:
+            out[path] = (None,) * (nd - 3) + (_FLAT_TP, None, None)
+        elif name == "embed":
+            out[path] = (_FLAT_TP, None)
+        elif name in _FLAT_W and nd >= 2:
+            out[path] = (None,) * (nd - 2) + (_FLAT_TP, None)
+        else:
+            out[path] = (None,) * nd
+    return out
+
+
+def flat_tp_cache_pspecs(cache_tree, mesh=None) -> dict:
+    """Cache layout for flat-TP serving: sequence dim over (data, model),
+    batch replicated."""
+    out = {}
+    for path, leaf in cache_tree.items():
+        name = path.rpartition("/")[2]
+        nd = len(leaf.shape)
+        if name in ("k", "v", "xk", "xv"):
+            sp = (None, None, _FLAT_TP, None, None)
+        elif name in ("ckv", "kpe", "h"):
+            sp = (None, None, _FLAT_TP, None)
+        elif name == "conv":
+            sp = (None, None, None, _FLAT_TP)
+        else:
+            sp = (None,) * nd
+        out[path] = _fit(sp[:nd], leaf.shape, mesh)
+    return out
+
+
 def opt_pspecs(server: AdaConfig, pspecs) -> dict:
     """The server state's specs: each moment tree laid out as the params."""
     out = {"step": ()}
@@ -1043,6 +1253,11 @@ def opt_pspecs(server: AdaConfig, pspecs) -> dict:
            (server.name == "amsgrad" and k == "vhat"):
             out[k] = pspecs
     return out
+
+
+# The reference's ``to_shardings(mesh, pspec_tree)`` wraps each spec in a
+# ``NamedSharding`` for ``jax.jit``; a rank places a tree under a spec tree
+# itself: ``models.sharding.local_shard(mesh, tree, specs)``.
 
 
 # ---------------------------------------------------------------------------
