@@ -7,7 +7,7 @@ The port's counterpart of ``examples/sketch_size_sweep.py``: the same
 for bit), ratios and 80 rounds, with the same monotonicity assertion.
 The weights are the port's own random init (seed 0).
 
-    PYTHONPATH=src python -m repro_torch.launch.sketch_size_sweep [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.sketch_size_sweep [--device cpu] [--rounds N]
 """
 
 from __future__ import annotations
@@ -32,8 +32,9 @@ RATIOS = (0.002, 0.01, 0.05, 0.25, 1.0)
 ROUNDS = 80
 
 
-def run(device: str = "cuda") -> dict[float, float]:
-    """Each ratio's run; returns its final loss by ratio."""
+def run(device: str = "cuda", rounds: int = ROUNDS) -> dict[float, float]:
+    """Each ratio's run of ``rounds`` rounds; returns its final loss by
+    ratio."""
     data = BigramLMData(LMDataConfig(vocab_size=512, seq_len=32, num_clients=5,
                                      alpha=0.02))
     loss = lambda p, b: loss_fn(MODEL, p, b)
@@ -48,13 +49,13 @@ def run(device: str = "cuda") -> dict[float, float]:
         opt = init_safl(safl, params)
         step = functools.partial(safl_round, safl, loss)
         curve = []
-        for t in range(ROUNDS):
+        for t in range(rounds):
             batch = data.round_batch(8, 2, seed=t, device=device)
             params, opt, m = step(params, opt, batch, prng.key(t))
             curve.append(float(m["loss"]))
         kib = total_sketch_bits(safl.sketch, params) / 8 / 1024
         results[ratio] = curve[-1]
-        pts = " ".join(f"{curve[i]:.3f}" for i in range(0, ROUNDS, 20))
+        pts = " ".join(f"{curve[i]:.3f}" for i in range(0, rounds, 20))
         print(f"{ratio:8.3f} {kib:10.1f} {curve[-1]:11.4f}  {pts}")
 
     rs = sorted(results)
@@ -69,7 +70,10 @@ def main(argv=None) -> dict[float, float]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda)")
-    return run(ap.parse_args(argv).device)
+    ap.add_argument("--rounds", type=int, default=ROUNDS,
+                    help=f"rounds a ratio (default: the reference's {ROUNDS})")
+    args = ap.parse_args(argv)
+    return run(args.device, args.rounds)
 
 
 if __name__ == "__main__":

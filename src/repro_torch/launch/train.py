@@ -21,29 +21,32 @@ gives each rank G_loc = G / #client shards rows.  Every rank runs
 ``fn(mesh, ...)`` on its own shards (``launch.mesh.spawn``).  One round
 on each rank:
 
-  1. all-gather its clients' weights over the non-client axes (the
-     server's downlink; ``models.sharding.gather_tree``);
-  2. run ``core.safl.client_deltas`` on its clients' full microbatches;
-  3. keep the local shard of each delta;
-  4. sketch them with the round's operator over the SHARD-LOCAL plan
+  1. run its clients' K local SGD steps on its own shards
+     (``client_deltas_sharded``: ``models.parallel.loss_fn`` under
+     ``train_par``, in lockstep with the other ranks of the client group;
+     no weight is gathered whole): ``cross_device`` tensor-parallel over
+     ``model`` on the client's whole microbatch, ``cross_device_dp`` the
+     whole weights on the rank's rows of each microbatch (cut over
+     ``model``; the gradients summed over it, one ``all_reduce`` a step),
+     ``cross_silo`` tensor-parallel over ``model`` and FSDP over ``data`` on
+     the rank's rows (cut over ``data``; FSDP's gather reduce-scatters the
+     gradients of the leaves cut over ``data``, one ``all_reduce`` sums the
+     rest).  The delta of a leaf is the rank's shard of it;
+  2. sketch the deltas with the round's operator over the SHARD-LOCAL plan
      (``core.packed.make_sharded_packing_plan``; every model/FSDP shard
      applies the same operator to its own slice, as the reference's
      ``shard_map`` does with a replicated key), so the uplink is ONE
      ``all_reduce`` of the ``(b_total,)`` payload over the client group,
      plus the scalar weight sum under a mask;
-  5. desketch locally and step AMSGrad on the local shard.
+  3. desketch locally and step AMSGrad on the local shard.
 
 The server state stays sharded: params, m, v and vhat per ``opt_pspecs``.
 FedOPT is the same round with the identity compressor, an O(d)
 ``all_reduce`` of the raw local delta shard.  The reference computes the
-client step with GSPMD over the model and FSDP axes; the port has no
-partitioner, so every rank of a client group runs the whole client step on
-the gathered weights (its numbers are the unsharded step's, as the
-reference's are up to summation order).  Tensor-parallel and FSDP compute
-inside the client step (so that no rank holds a whole replica) is left
-for later (ROADMAP A-11 step 4, with ``models.parallel``'s layers); it
-matters only on more than one card, and jamba and deepseek-v3 at full
-width exceed one card even as one block.
+client step with GSPMD over the model and FSDP axes; the port runs the
+collectives of ``models.parallel``'s layers itself (Megatron's pairs:
+row-parallel sums, a copy where a replicated tensor enters rank-specific
+work, a vocab-parallel cross-entropy).
 
 The hooks act on a rank's own rows and shards, each with the reference's
 collectives:
@@ -99,9 +102,9 @@ from repro_torch.core.packed import (PackingPlan, derive_generation_params,
                                      sk_packed_clients_wsum, unpack_rows,
                                      unpack_tree)
 from repro_torch.core.safl import (SAFLConfig, _f32, chunk_clients,
-                                   client_deltas, init_safl, mask_weights,
+                                   init_safl, mask_weights,
                                    masked_mean, masked_psum_mean,
-                                   resolve_microbatch, safl_round)
+                                   resolve_microbatch, safl_round, tree_sub)
 from repro_torch.core.sketch import (SKETCH_CHUNK_NUMEL, SketchConfig,
                                      desk_leaf, desk_leaf_stacked, leaf_names,
                                      numel, sk_leaf, sk_leaf_stacked)
@@ -117,8 +120,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models import parallel
 from repro_torch.models.model import (_cache_dtype, cache_shapes, decode_step,
                                       forward, init_params, loss_fn, param_shapes)
-from repro_torch.models.sharding import (_entry_axes, gather_tree,
-                                         local_shard, param_pspecs)
+from repro_torch.models.sharding import _entry_axes, local_shard, param_pspecs
 from repro_torch.obs.telemetry import effective_cohort
 
 Tree = Mapping[str, torch.Tensor]
@@ -621,20 +623,132 @@ def _mesh_probes(tel, mesh, topology: str, pspecs, deltas: Tree, update: Tree,
 # the round and its step functions
 # ---------------------------------------------------------------------------
 
+def train_par(model_cfg: ModelConfig, mesh, topology: str, pspecs) -> parallel.Par:
+    """The client step's layout on this rank (``models.parallel.Par``):
+    ``cross_device`` the weights over ``model`` and the client's whole
+    microbatch on every rank of its group; ``cross_device_dp`` the weights
+    whole and the microbatch's rows over ``model``; ``cross_silo`` the
+    weights over ``model`` and FSDP over ``data``, the rows over ``data``.
+    The rows of a microbatch are cut as ``batch_pspecs`` records them."""
+    inner = {"cross_device_dp": "model", "cross_silo": "data"}.get(topology)
+    return parallel.Par(mesh, model_cfg, pspecs, {},
+                        batch_axes=(inner,) if inner in mesh.axis_names else (),
+                        fsdp=topology == "cross_silo",
+                        replicated=topology == "cross_device_dp")
+
+
+def _sum_over_batch(par: parallel.Par, names, grads) -> list:
+    """The gradients with every leaf not cut over the batch axes summed
+    over them, in ONE fused float32 ``all_reduce`` (a leaf no step reads
+    has none on any rank); a leaf cut over them has its sum from FSDP's
+    reduce-scatter already."""
+    group = par.mesh.group(par.batch_axes)
+    if group is None:
+        return list(grads)
+    cut = set(par.batch_axes)
+    mine = [i for i, n in enumerate(names)
+            if not cut & {a for e in par.pspecs[n] for a in _entry_axes(e)}]
+    mine = [i for i in mine if grads[i] is not None]      # the same on every rank
+    if not mine:
+        return list(grads)
+    flat = parallel._reduce_(torch.cat([grads[i].to(torch.float32).reshape(-1)
+                                        for i in mine]), group)
+    out, off = list(grads), 0
+    for i in mine:
+        n = grads[i].numel()
+        out[i] = flat[off:off + n].reshape(grads[i].shape).to(grads[i].dtype)
+        off += n
+    return out
+
+
+def shard_rows(par: parallel.Par, batch: Tree, dim: int) -> dict:
+    """The rank's contiguous block of each leaf's rows (dim ``dim``) over
+    ``par.batch_axes``, in mesh order; the leaves themselves when the batch
+    is not cut.  A count that does not divide raises."""
+    if not par.batch_axes:
+        return dict(batch)
+    spec = (None,) * dim + (_spec_entry(par.batch_axes),)
+    return local_shard(par.mesh, batch, {k: spec for k in batch})
+
+
+def sharded_value_and_grad(par: parallel.Par, params: Tree, batch: Tree):
+    """``parallel.loss_fn``'s value and gradients on the rank's shards and
+    rows: (the client's loss, the same on every rank; the gradients of the
+    rank's shards, each summed over the batch axes)."""
+    names = list(params)
+    leaves = [params[n].detach().requires_grad_(True) for n in names]
+    loss, client = parallel.loss_fn(par, dict(zip(names, leaves)), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return client, dict(zip(names, _sum_over_batch(par, names, grads)))
+
+
+def _client_delta_sharded(cfg: SAFLConfig, par: parallel.Par, params: Tree,
+                          microbatches, eta: float) -> tuple[dict, torch.Tensor]:
+    """``core.safl.client_delta`` on the rank's shards and rows: K local SGD
+    steps of ``sharded_value_and_grad``; returns (the shard's x_0 - x_K,
+    the client's mean loss)."""
+    p = dict(params)
+    losses = []
+    for k in range(next(iter(microbatches.values())).shape[0]):
+        loss, grads = sharded_value_and_grad(
+            par, p, {key: v[k] for key, v in microbatches.items()})
+        with torch.no_grad():
+            p = {n: x if grads[n] is None else
+                 (x.to(torch.float32) - eta * grads[n].to(torch.float32)).to(x.dtype)
+                 for n, x in p.items()}
+        losses.append(loss)
+    with torch.no_grad():
+        return tree_sub(params, p), torch.mean(torch.stack(losses))
+
+
 def client_deltas_sharded(model_cfg: ModelConfig, safl_cfg: SAFLConfig, mesh,
                           topology: str, params: Tree, batch, eta: float,
                           pspecs) -> tuple[dict, torch.Tensor]:
-    """This rank's clients' local training: gather the whole weights over
-    the non-client axes (the downlink), run K local SGD steps on each of
-    the rank's clients' full microbatches, and keep the local shard of
-    each delta.  Returns (deltas (G_loc, *local_shard), losses (G_loc,))."""
-    full = gather_tree(mesh, params, pspecs)
-    deltas, losses = client_deltas(safl_cfg,
-                                   lambda p, b: loss_fn(model_cfg, p, b),
-                                   full, batch, eta)
-    del full
-    lead = {k: (None,) + tuple(s) for k, s in pspecs.items()}
-    return local_shard(mesh, deltas, lead), losses
+    """This rank's clients' local training on its own shards
+    (``models.parallel.loss_fn`` under ``train_par``): K local SGD steps
+    of each of the rank's clients, in lockstep with its client group, on
+    the rank's rows of each microbatch; no weight is gathered whole.  The
+    delta of a leaf is the rank's shard itself.  Returns (deltas (G_loc,
+    *local_shard), losses (G_loc,): each client's loss, the same on every
+    rank of its group)."""
+    par = train_par(model_cfg, mesh, topology, pspecs)
+    batch = shard_rows(par, batch, 2)
+    deltas, losses = [], []
+    for c in range(_rows_of(batch)):
+        d, l = _client_delta_sharded(safl_cfg, par, params,
+                                     {k: v[c] for k, v in batch.items()}, eta)
+        deltas.append(d)
+        losses.append(l)
+    return ({k: torch.stack([d[k] for d in deltas]) for k in params},
+            torch.stack(losses))
+
+
+def _sync_copies(mesh, topology: str, pspecs, trees: list) -> None:
+    """Give every copy of a leaf replicated over a non-client axis that cuts
+    other leaves the value of its group's first member, in place: one
+    ``broadcast`` of the leaves' bytes for each set of such axes.  A codec
+    round scales each shard's partial sum by its own range, so the copies
+    of a replicated leaf drift apart over the shards that hold other
+    slices; the reference declares the leaf replicated and its host reads
+    the first device's copy.  The client step computes one model from the
+    copies it holds, so they must agree."""
+    cut = {a for spec in pspecs.values() for e in spec for a in _entry_axes(e)}
+    cut -= set(client_axes_of(mesh, topology))
+    by_axes: dict[tuple, list] = {}
+    for k, spec in pspecs.items():
+        own = {a for e in spec for a in _entry_axes(e)}
+        axes = tuple(a for a in mesh.axis_names if a in cut and a not in own)
+        if mesh.group(axes) is not None:
+            by_axes.setdefault(axes, []).append(k)
+    for axes, ks in by_axes.items():
+        leaves = [t[k] for t in trees for k in ks]
+        flat = torch.cat([x.contiguous().view(torch.uint8).reshape(-1) for x in leaves])
+        dist.broadcast(flat, src=mesh.ranks_over(axes)[0], group=mesh.group(axes))
+        off = 0
+        for x in leaves:
+            n = x.numel() * x.element_size()
+            x.copy_(flat[off:off + n].view(x.dtype).reshape(x.shape))
+            off += n
 
 
 def _gather_losses(mesh, topology: str, losses: torch.Tensor) -> torch.Tensor:
@@ -847,6 +961,8 @@ def _make_round_core(model_cfg: ModelConfig, safl_cfg: SAFLConfig, mesh,
         params, state = apply_update(server, state, params, update)
         metrics = {"loss": masked_mean(losses, part_mask)}
         if codec is not None:
+            _sync_copies(mesh, topology, pspecs,
+                         [params] + [state[m] for m in ("m", "v", "vhat") if m in state])
             # the measured wire size: one encoded (b_total,) partial sum a
             # client shard crosses the collective, whatever the mask
             metrics["uplink_bits"] = torch.tensor(
@@ -1130,8 +1246,9 @@ def make_serve_step(model_cfg: ModelConfig, mesh=None, *, layout: str = "default
 def batch_pspecs(batch_tree, mesh, topology: str = "cross_device") -> dict:
     """The reference's train-batch specs, (G, K, mb, ...): G over the
     client axes, mb over data in cross_silo and over model in
-    cross_device_dp.  A layout record: every rank of a client group takes
-    its client's whole rows here (``mesh_sampler``)."""
+    cross_device_dp.  The sampler hands every rank of a client group its
+    client's whole rows (``mesh_sampler``); the client step takes the
+    rank's block of mb (``shard_rows`` under ``train_par``)."""
     caxes = client_axes_of(mesh, topology)
     lead = (caxes if len(caxes) > 1 else caxes[0]) if caxes else None
     inner = None

@@ -1,5 +1,6 @@
-"""Sharded serving: the decode step, the prefill and the encoder on each
-rank's own blocks of the weights and the cache, with explicit collectives.
+"""The model on each rank's own blocks of the weights and the cache, with
+explicit collectives: sharded serving (the decode step, the prefill, the
+encoder) and the mesh client step's loss and gradients.
 
 Stands in for the GSPMD partitioning of ``repro/models/{layers,model}.py``
 under ``param_pspecs``, ``cache_pspecs`` and the flat layout
@@ -12,7 +13,8 @@ runs the collectives itself, one over the process group of the axes it
 reduces over (``Mesh.group``).  No function gathers a whole weight or a
 whole cache leaf.
 
-The layouts (``launch.train.make_serve_step``/``make_prefill_step``):
+The layouts (``launch.train.make_serve_step``/``make_prefill_step``, and
+``launch.train.train_par`` for the client step):
 
 * default: each weight's model dim over ``model`` (heads, d_ff, d_inner,
   experts, the vocabulary), the batch over the data axes where it divides,
@@ -20,15 +22,26 @@ The layouts (``launch.train.make_serve_step``/``make_prefill_step``):
   weights are cut over ``data`` too, and each block of a leaf is
   all-gathered over ``data`` just before it is used and dropped after
   (ZeRO's gather): that gives back the default layout's block.
-* flat: every weight's contracting dim over (data, model), the MoE experts
-  over E, the embedding over V; the cache's sequence over (data, model);
-  the batch replicated.  Each projection slices the rank's part of the
-  replicated activation, multiplies it by the rank's rows and sums over
-  the group: every output is whole.
+* replicated (``cross_device_dp``'s client step): every weight whole, the
+  batch's rows over ``model``; no tensor parallelism.
+* flat (serving only, as in the reference): every weight's contracting dim
+  over (data, model), the MoE experts over E, the embedding over V; the
+  cache's sequence over (data, model); the batch replicated.  Each
+  projection slices the rank's part of the replicated activation,
+  multiplies it by the rank's rows and sums over the group: every output
+  is whole.
 
 The collectives: a row-parallel projection ends in one ``all_reduce``; a
-column-parallel one is local.  Decode attention runs over the cache's own
-shards: the new token's q (and k, v) are gathered over the heads (B x
+column-parallel one is local.  Under autograd they are Megatron's pairs
+(``_Sum``: sum, identity backward; ``_Copy``: identity, sum backward,
+wherever a tensor that is the same on every rank of the group enters
+rank-specific work; ``_Gather``: the backward takes the rank's block;
+FSDP's gather: the backward reduce-scatters over ``data``), so a rank's
+gradient of a replicated tensor is the whole one and of its blocks its
+own.  The loss (``loss_fn``) is a vocab-parallel cross-entropy on the
+rank's (B, S_chunk, V_loc) logits, its row maximum, exponential sum and
+gold logit summed over the group.  Decode attention runs over the cache's
+own shards: the new token's q (and k, v) are gathered over the heads (B x
 heads x hd, small), the rank that owns the slot writes it (a masked write
 on the device, no host sync), and the softmax is the one GSPMD computes
 over a sharded sequence: ``all_reduce`` MAX of the row maximum, SUM of the
@@ -53,16 +66,18 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import DENSE, _positions_for
+from repro_torch.models.model import DENSE, LOSS_CHUNK, _positions_for
 from repro_torch.models.sharding import FSDP, _entry_axes
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Par:
-    """One rank's view of a serving layout: its live mesh, the specs of
-    every weight and cache leaf (flat dicts, as ``param_pspecs`` returns
-    them), the axes the batch is cut over, whether the layout is the flat
-    one and whether weights are also cut over ``data`` (FSDP)."""
+    """One rank's view of a layout: its live mesh, the specs of every
+    weight and cache leaf (flat dicts, as ``param_pspecs`` returns them),
+    the axes the batch is cut over, whether the layout is the flat one,
+    whether weights are also cut over ``data`` (FSDP), and whether they
+    are whole on every rank (``replicated``: ``cross_device_dp``'s client
+    step, no tensor parallelism)."""
     mesh: Any
     cfg: ModelConfig
     pspecs: Mapping[str, tuple]
@@ -70,11 +85,19 @@ class Par:
     batch_axes: tuple[str, ...] = ()
     flat: bool = False
     fsdp: bool = False
+    replicated: bool = False
 
     @property
     def tp(self) -> tuple[str, ...]:
         """The axes the weights' model-parallel dim is cut over."""
+        if self.replicated:
+            return ()
         return ("data", "model") if self.flat else ("model",)
+
+    @property
+    def nb(self) -> int:
+        """The number of blocks the batch is cut into."""
+        return math.prod(self.mesh.shape[a] for a in self.batch_axes)
 
     @property
     def n(self) -> int:
@@ -97,28 +120,134 @@ class Par:
 # ranks in ascending order (``Mesh.ranks_over``): their row-major index
 # over its axes in mesh order, the order a spec cuts blocks in.
 
-def _all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
-                op: str = "sum") -> torch.Tensor:
-    """The sum (or the max, ``op="max"``) of ``x`` over the ranks of ``axes``."""
-    group = mesh.group(axes)
-    if group is None:
-        return x
+def _reduce_(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` summed (or maxed) over ``group``, in place when contiguous."""
     x = x.contiguous()
     dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
                     group=group)
     return x
 
 
-def _all_gather(x: torch.Tensor, mesh, axes: Sequence[str], dim: int) -> torch.Tensor:
-    """The blocks of ``x`` over the ranks of ``axes`` (in mesh order),
-    concatenated along ``dim`` in the members' order."""
-    group = mesh.group(axes)
-    if group is None:
-        return x
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(parts: list, group) -> torch.Tensor:
+    """The sum over ``group`` of each member's ``parts``, the rank's own
+    part of it (``parts[i]`` goes to member i); gloo reduces CPU tensors,
+    so a card's are staged through the host."""
+    dev = parts[0].device
+    if parts[0].is_cuda and dist.get_backend(group) == "gloo":
+        parts = [t.cpu() for t in parts]
+    parts = [t.contiguous() for t in parts]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out.to(dev)
+
+
+def _own_block(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    b = t.shape[dim] // n
+    return t.narrow(dim, dist.get_rank(group) * b, b)
+
+
+# Megatron's pairs: each op's backward is its forward's transpose over the
+# group, so a rank's gradient of a replicated tensor is the whole one and
+# of a rank-specific tensor its own.
+
+class _Sum(torch.autograd.Function):
+    """The group's sum; the backward is the identity (the sum is replicated,
+    so its gradient is the same on every member)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    """The identity where a tensor that is the same on every member enters
+    rank-specific work; the backward sums the members' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_(g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """The members' blocks concatenated along ``dim`` into a replicated
+    tensor; the backward takes the rank's own block."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_block(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    """FSDP's gather of a weight's blocks over ``data``, whose members hold
+    other rows of the batch: the backward sums their gradients and hands
+    each its own block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        return _reduce_scatter(list(g.chunk(n, ctx.dim)), ctx.group), None, None
+
+
+def _all_reduce(x: torch.Tensor, mesh, axes: Sequence[str],
+                op: str = "sum") -> torch.Tensor:
+    """The sum (or the max, ``op="max"``) of ``x`` over the ranks of ``axes``.
+    A sum that autograd records is ``_Sum``: its backward is the identity."""
+    group = mesh.group(axes)
+    if group is None:
+        return x
+    if op == "sum" and x.requires_grad and torch.is_grad_enabled():
+        return _Sum.apply(x, group)
+    return _reduce_(x, group, op)
+
+
+def _copy(par: "Par", x: torch.Tensor) -> torch.Tensor:
+    """``x`` (the same on every rank of ``par.tp``) as the input of the
+    rank's own share of some work: its gradient is summed over the group."""
+    group = par.group
+    if group is None or not (x.requires_grad and torch.is_grad_enabled()):
+        return x
+    return _Copy.apply(x, group)
+
+
+def _all_gather(x: torch.Tensor, mesh, axes: Sequence[str], dim: int, *,
+                shards: bool = False) -> torch.Tensor:
+    """The blocks of ``x`` over the ranks of ``axes`` (in mesh order),
+    concatenated along ``dim`` in the members' order.  Under autograd the
+    backward takes the rank's block of the gradient, summed over the
+    group first when the members' gradients differ (``shards``: FSDP)."""
+    group = mesh.group(axes)
+    if group is None:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return (_GatherShards if shards else _Gather).apply(x, group, dim)
+    return _gather(x, group, dim)
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -148,7 +277,7 @@ class Blocks:
         if self.par.fsdp:
             for dim, e in enumerate(self.specs[path]):
                 if e == FSDP:
-                    x = _all_gather(x, self.par.mesh, (FSDP,), dim)
+                    x = _all_gather(x, self.par.mesh, (FSDP,), dim, shards=True)
         return x
 
     def __contains__(self, path: str) -> bool:
@@ -186,12 +315,16 @@ def _rows(par: Par, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _all_reduce(_part(par, x, w), par.mesh, par.tp)
 
 
-def _proj(par: Par, x: torch.Tensor, ws: Sequence[torch.Tensor]) -> list:
+def _proj(par: Par, x: torch.Tensor, ws: Sequence[torch.Tensor], *,
+          cols: bool = True) -> list:
     """x @ W for each weight of ``ws``, ``x`` replicated over the group.
     Flat: every ``w`` holds rows, and every output is whole, from one
-    fused ``all_reduce``.  Otherwise ``x @ w``: the rank's columns of a
-    column-parallel weight, all of a replicated one."""
+    fused ``all_reduce``.  Otherwise ``x @ w``: the rank's columns of
+    column-parallel weights (``cols``: ``x`` enters them through
+    ``_copy``), or all of replicated ones (``cols=False``)."""
     if not par.flat:
+        if cols:
+            x = _copy(par, x)
         return [x @ w for w in ws]
     parts = [_part(par, x, w) for w in ws]
     widths = [p.shape[-1] for p in parts]
@@ -201,16 +334,17 @@ def _proj(par: Par, x: torch.Tensor, ws: Sequence[torch.Tensor]) -> list:
 
 def _local(par: Par, t: torch.Tensor, full: int, dim: int = -1) -> torch.Tensor:
     """The rank's block of ``t`` along ``dim`` when ``t`` is whole there
-    (size ``full``); ``t`` itself when it holds that block already."""
+    (size ``full``, the same on every rank: it enters through ``_copy``);
+    ``t`` itself when it holds that block already."""
     if t.shape[dim] != full or par.n == 1:
         return t
     b = full // par.n
-    return t.narrow(dim, par.r * b, b)
+    return _copy(par, t).narrow(dim, par.r * b, b)
 
 
 def _whole(par: Par, t: torch.Tensor, full: int, dim: int = -1) -> torch.Tensor:
     """``t`` whole along ``dim``: gathered over the group when it holds
-    the rank's block only."""
+    the rank's block only (the backward takes the block back)."""
     return t if t.shape[dim] == full else _all_gather(t, par.mesh, par.tp, dim)
 
 
@@ -343,7 +477,7 @@ def mla_attention_decode(par: Par, p: Blocks, x: torch.Tensor, pos: torch.Tensor
     H = cfg.num_heads
     nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
-    cq, ckv_t, kpe_t = _proj(par, x, [p["w_dq"], p["w_dkv"], p["w_kr"]])
+    cq, ckv_t, kpe_t = _proj(par, x, [p["w_dq"], p["w_dkv"], p["w_kr"]], cols=False)
     q = _proj(par, cq, [p["w_uq"]])[0]
     Hq = q.shape[-1] // (nope + rdim)
     q = q.reshape(B, Hq, nope + rdim)
@@ -397,6 +531,9 @@ def attention(par: Par, p: Blocks, x: torch.Tensor, positions: torch.Tensor, *,
         k, v = _proj(par, enc_out, [p["wk"], p["wv"]])
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if q.shape[-1] % hd or k.shape[-1] % hd:
+        raise ValueError(f"{cfg.name}: {cfg.num_heads} query and {cfg.num_kv_heads} "
+                         f"key/value heads do not split over {par.n} ranks")
     Hq, Hkv = q.shape[-1] // hd, k.shape[-1] // hd
     T = k.shape[1]
     q = q.reshape(B, S, Hq, hd)
@@ -413,17 +550,19 @@ def attention(par: Par, p: Blocks, x: torch.Tensor, positions: torch.Tensor, *,
 
 def mla_attention(par: Par, p: Blocks, x: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
-    """``layers.mla_attention`` (unabsorbed) over the rank's heads."""
+    """``layers.mla_attention`` (unabsorbed) over the rank's heads: the
+    replicated down-projections, then ``cq``, ``ckv`` and the shared rotary
+    key ``k_pe`` into the rank's heads."""
     cfg = par.cfg
     B, S, _ = x.shape
     nope, rdim, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    cq, ckv, k_pe = _proj(par, x, [p["w_dq"], p["w_dkv"], p["w_kr"]])
+    cq, ckv, k_pe = _proj(par, x, [p["w_dq"], p["w_dkv"], p["w_kr"]], cols=False)
     q = _proj(par, cq, [p["w_uq"]])[0]
     k_nope, v = _proj(par, ckv, [p["w_uk"], p["w_uv"]])
     Hq = q.shape[-1] // (nope + rdim)
     q = q.reshape(B, S, Hq, nope + rdim)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
-    k_pe = k_pe.reshape(B, S, 1, rdim)
+    k_pe = _copy(par, k_pe).reshape(B, S, 1, rdim)
     k_nope = k_nope.reshape(B, S, Hq, nope)
     v = v.reshape(B, S, Hq, vdim)
     cos, sin = L.rope_cos_sin(cfg, positions, rdim)
@@ -468,21 +607,32 @@ def _moe_offsets(par: Par, topi: torch.Tensor, t0: int, tc: int,
     return every[:par.mesh.index_over(par.batch_axes)].sum(0)
 
 
-def moe(par: Par, p: Blocks, x: torch.Tensor) -> torch.Tensor:
+def moe(par: Par, p: Blocks, x: torch.Tensor, *, aux: bool = False):
     """``layers.moe`` with the experts cut over the group: the replicated
     (or, flat, row-summed) float32 router, each choice's slot in the
     global batch's (token, choice) order within each ``MOE_CHUNK`` and the
     capacity of the global token count, the rank's experts on the choices
-    routed to them, the shared expert's share, one ``all_reduce``."""
+    routed to them, the shared expert's share, one ``all_reduce``.  The
+    tokens and the top-k weights enter the rank's experts through
+    ``_copy``.  Returns (out, the load-balance aux loss or None): with
+    ``aux``, its ``me``/``ce`` are means over the whole batch, one
+    ``all_reduce`` of the rank's sums over the batch axes (identity in the
+    backward), so the term is the same on every rank."""
     cfg = par.cfg
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.moe_top_k
     T = B * S
     xf = x.reshape(T, D)
-    probs = torch.softmax(_proj(par, xf, [p["router"]])[0].to(torch.float32), dim=-1)
+    probs = torch.softmax(_proj(par, xf, [p["router"]], cols=False)[0]
+                          .to(torch.float32), dim=-1)
     topw, topi = torch.topk(probs, k, dim=-1)
     topw = topw / (torch.sum(topw, dim=-1, keepdim=True) + 1e-9)
-    nb = math.prod(par.mesh.shape[a] for a in par.batch_axes)
+    nb = par.nb
+    loss = None
+    if aux:
+        sums = torch.cat([probs.sum(0), F.one_hot(topi[:, 0], E).to(torch.float32).sum(0)])
+        sums = _all_reduce(sums, par.mesh, par.batch_axes) / (T * nb)
+        loss = cfg.router_aux_weight * E * torch.sum(sums[:E] * sums[E:])
     t0 = par.mesh.index_over(par.batch_axes) * T          # first global token
     tc, cap = L.moe_capacity(cfg, T * nb)
     # with cap >= tc no expert fills in a chunk: the earlier shards' slots
@@ -493,6 +643,7 @@ def moe(par: Par, p: Blocks, x: torch.Tensor) -> torch.Tensor:
     e_loc = w["wi"].shape[0]
     e0 = par.r * e_loc if e_loc != E else 0
     n_rows = e_loc * cap
+    xc, topw = (_copy(par, t) for t in (xf, topw))
     outs = []
     for g0 in range(t0 // tc * tc, t0 + T, tc):
         a, b = max(g0, t0) - t0, min(g0 + tc, t0 + T) - t0
@@ -503,7 +654,7 @@ def moe(par: Par, p: Blocks, x: torch.Tensor) -> torch.Tensor:
             posn = posn + offsets[g0 // tc][fi]
         keep = (posn < cap) & (fi >= e0) & (fi < e0 + e_loc)
         slot = torch.where(keep, (fi - e0) * cap + posn, n_rows)
-        xrep = torch.repeat_interleave(xf[a:b], k, dim=0)
+        xrep = torch.repeat_interleave(xc[a:b], k, dim=0)
         buf = torch.zeros((n_rows + 1, D), dtype=x.dtype,
                           device=x.device).index_add(0, slot, xrep)
         ye = L._expert_ffn(w, buf[:n_rows].reshape(e_loc, cap, D))
@@ -514,10 +665,10 @@ def moe(par: Par, p: Blocks, x: torch.Tensor) -> torch.Tensor:
     out = torch.cat(outs)
     if cfg.num_shared_experts:
         fs = cfg.moe_ff * cfg.num_shared_experts
-        g, i = _proj(par, xf, [p["shared/wg"], p["shared/wi"]])
+        g, i = _proj(par, xc, [p["shared/wg"], p["shared/wi"]], cols=False)
         h = F.silu(_local(par, g, fs)) * _local(par, i, fs)
         out = out + _part(par, h, p["shared/wo"])
-    return _all_reduce(out, par.mesh, par.tp).reshape(B, S, D)
+    return _all_reduce(out, par.mesh, par.tp).reshape(B, S, D), loss
 
 
 def _mamba_in(par: Par, p: Blocks, x: torch.Tensor):
@@ -532,11 +683,13 @@ def _mamba_in(par: Par, p: Blocks, x: torch.Tensor):
 
 def _mamba_dt(par: Par, p: Blocks, ch: dict, u: torch.Tensor):
     """(dt, B, C) from the rank's channels: the row-parallel ``x_proj``
-    summed whole, then the rank's d_inner columns of ``dt_proj``."""
+    summed whole (all of it feeds the rank's channels: one ``_copy``),
+    then the rank's d_inner columns of ``dt_proj``."""
     cfg = par.cfg
     dtr, ds = cfg.dt_rank, cfg.ssm_state
-    xdb = _rows(par, u, p["x_proj"])
-    dt = _local(par, _proj(par, xdb[..., :dtr], [p["dt_proj"]])[0], cfg.d_inner)
+    xdb = _copy(par, _rows(par, u, p["x_proj"]))
+    dt = _local(par, _proj(par, xdb[..., :dtr], [p["dt_proj"]], cols=False)[0],
+                cfg.d_inner)
     dt = F.softplus(dt + ch["dt_bias"])
     return dt, xdb[..., dtr:dtr + ds], xdb[..., dtr + ds:]
 
@@ -600,9 +753,11 @@ def mamba_decode(par: Par, p: Blocks, x: torch.Tensor, cache: dict) -> torch.Ten
 
 def _apply_block(par: Par, pattern, blk: Blocks, x: torch.Tensor,
                  positions: torch.Tensor, *, enc_out: Optional[torch.Tensor] = None,
-                 bidirectional: bool = False) -> torch.Tensor:
-    """``model._apply_block`` (no aux loss: serving) on the rank's blocks."""
+                 bidirectional: bool = False, aux: bool = False):
+    """``model._apply_block`` on the rank's blocks: (x, the MoE layers' aux
+    loss, or None without ``aux``)."""
     cfg = par.cfg
+    total = None
     for i, (mixer, mlp_kind) in enumerate(pattern):
         sub = blk.sub(f"l{i}/")
         if mixer == "attn":
@@ -626,16 +781,23 @@ def _apply_block(par: Par, pattern, blk: Blocks, x: torch.Tensor,
             x = x + mlp(par, p, L.apply_norm(cfg, p.sub("ln/"), x))
         elif mlp_kind == "moe":
             p = sub.sub("moe/")
-            x = x + moe(par, p, L.apply_norm(cfg, p.sub("ln/"), x))
-    return x
+            h, a = moe(par, p, L.apply_norm(cfg, p.sub("ln/"), x), aux=aux)
+            x = x + h
+            if aux:
+                total = a if total is None else total + a
+    return x, total
 
 
 def _run_blocks(par: Par, pattern, P: Blocks, prefix: str, x: torch.Tensor,
-                positions: torch.Tensor, **kw) -> torch.Tensor:
+                positions: torch.Tensor, **kw):
+    """Every block of the stack under ``prefix``: (x, the summed aux loss)."""
     stack = P.sub(prefix)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(stack.depth()):
-        x = _apply_block(par, pattern, stack.layer(layer), x, positions, **kw)
-    return x
+        x, a = _apply_block(par, pattern, stack.layer(layer), x, positions, **kw)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _encode(par: Par, P: Blocks, audio: torch.Tensor) -> torch.Tensor:
@@ -645,18 +807,17 @@ def _encode(par: Par, P: Blocks, audio: torch.Tensor) -> torch.Tensor:
     dev = audio.device
     e = audio + L.sinusoidal_embed(torch.arange(Te, device=dev),
                                    cfg.d_model)[None].to(audio.dtype)
-    e = _run_blocks(par, DENSE, P, "enc_layers/", e, _positions_for(cfg, B, Te, dev),
-                    bidirectional=True)
+    e, _ = _run_blocks(par, DENSE, P, "enc_layers/", e, _positions_for(cfg, B, Te, dev),
+                       bidirectional=True)
     return L.apply_norm(cfg, P.sub("enc_norm/"), e)
 
 
-@torch.no_grad()
-def forward(par: Par, params: Mapping[str, torch.Tensor],
-            batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def _forward(par: Par, P: Blocks, batch: Mapping[str, torch.Tensor], *,
+             aux: bool = False):
     """``model.forward`` on the rank's blocks and its rows of the batch:
-    the hidden states (B_loc, S, D), replicated over the group."""
+    (the hidden states (B_loc, S, D), replicated over the group; the aux
+    loss)."""
     cfg = par.cfg
-    P = Blocks(par, params, par.pspecs)
     tokens = batch["tokens"]
     B = tokens.shape[0]
     dev = tokens.device
@@ -672,10 +833,21 @@ def forward(par: Par, params: Mapping[str, torch.Tensor],
     enc_out = None
     if cfg.encoder_layers:
         enc_out = _encode(par, P, batch["audio_embeds"].to(x.dtype))
+    total = torch.zeros((), dtype=torch.float32, device=dev)
     if cfg.first_dense_layers:
-        x = _run_blocks(par, DENSE, P, "dense_layers/", x, positions)
-    x = _run_blocks(par, pattern, P, "layers/", x, positions, enc_out=enc_out)
-    return L.apply_norm(cfg, P.sub("final_norm/"), x)
+        x, a = _run_blocks(par, DENSE, P, "dense_layers/", x, positions, aux=aux)
+        total = total + a
+    x, a = _run_blocks(par, pattern, P, "layers/", x, positions, enc_out=enc_out,
+                       aux=aux)
+    return L.apply_norm(cfg, P.sub("final_norm/"), x), total + a
+
+
+@torch.no_grad()
+def forward(par: Par, params: Mapping[str, torch.Tensor],
+            batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """``model.forward`` on the rank's blocks and its rows of the batch:
+    the hidden states (B_loc, S, D), replicated over the group."""
+    return _forward(par, Blocks(par, params, par.pspecs), batch)[0]
 
 
 @torch.no_grad()
@@ -686,6 +858,111 @@ def prefill_logits(par: Par, params: Mapping[str, torch.Tensor],
     h = forward(par, params, batch)[:, -1]
     P = Blocks(par, params, par.pspecs)
     return h @ (P["embed"].T if par.cfg.tie_embeddings else P["lm_head"])
+
+
+# ---------------------------------------------------------------------------
+# the training loss (vocab-parallel cross-entropy)
+# ---------------------------------------------------------------------------
+
+class _VocabCE(torch.autograd.Function):
+    """The masked cross-entropy sum of one sequence chunk from the rank's
+    (B, Sc, V_loc) float32 logits, columns [v0, v0 + V_loc) of the padded
+    vocabulary: the row maximum (detached) by one MAX ``all_reduce``, the
+    exponentials' sum and the gold logit (the reference's masked sum over
+    the vocabulary) by one SUM; the result is the same on every rank.  The
+    backward is ``softmax - onehot`` on the local block."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mask, v0, group):
+        m = logits.amax(-1)
+        if group is not None:
+            m = _reduce_(m, group, "max")
+        ids = v0 + torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.sum(torch.where(ids == labels[..., None], logits, 0.0), dim=-1)
+        sg = torch.stack([torch.exp(logits - m[..., None]).sum(-1), gold])
+        if group is not None:
+            sg = _reduce_(sg, group)
+        lse = m + torch.log(sg[0])
+        ctx.save_for_backward(logits, lse, labels, mask)
+        ctx.v0 = v0
+        return torch.sum((lse - sg[1]) * mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, labels, mask = ctx.saved_tensors
+        ids = ctx.v0 + torch.arange(logits.shape[-1], device=logits.device)
+        grad = torch.exp(logits - lse[..., None])
+        grad = grad - (ids == labels[..., None]).to(grad.dtype)
+        return grad * (g * mask)[..., None], None, None, None, None
+
+
+def _ce_sum(par: Par, h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """``model._ce_loss_chunked``'s numerator, chunked along the sequence by
+    ``LOSS_CHUNK``: h (B, S, D) (through ``_copy``) times the rank's
+    (D, V_loc) head columns, each chunk's logits only; with the whole
+    vocabulary on the rank, the one-process sum, bit for bit."""
+    v_loc = head.shape[-1]
+    whole = v_loc == par.cfg.padded_vocab
+    S = h.shape[1]
+    sc = min(LOSS_CHUNK, S)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, sc):
+        logits = (h[:, c0:c0 + sc] @ head).to(torch.float32)
+        lc, mc = labels[:, c0:c0 + sc].long(), mask[:, c0:c0 + sc].to(torch.float32)
+        if whole:       # the vocabulary on this rank: model._ce_loss_chunked's sum
+            gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+            tot = tot + torch.sum((torch.logsumexp(logits, dim=-1) - gold) * mc)
+        else:
+            tot = tot + _VocabCE.apply(logits, lc, mc, par.r * v_loc, par.group)
+    return tot
+
+
+def _count(par: Par, mask: torch.Tensor) -> torch.Tensor:
+    """The client's global count of loss positions (at least 1), float32:
+    every batch block's rows carry the same mask."""
+    return torch.clamp(torch.sum(mask.to(torch.float32)) * par.nb, min=1.0)
+
+
+def loss_fn(par: Par, params: Mapping[str, torch.Tensor],
+            batch: Mapping[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """``model.loss_fn`` on the rank's blocks and its rows of a client's
+    batch (the batch cut over ``par.batch_axes``): the next-token loss over
+    the padded vocabulary through the vocab-parallel cross-entropy
+    (no rank holds (B, S, V)), DeepSeek's MTP term and the MoE aux loss.
+
+    Returns (loss, client_loss).  ``loss`` is the rank's differentiable
+    term: its cross-entropy sums over the client's global token count plus
+    the aux loss (the same on every rank), so the rank's gradients summed
+    over the batch axes are the client loss's gradients.  ``client_loss``
+    (detached) is the client's loss, the same on every rank: the rank's
+    cross-entropy terms summed over the batch axes (one scalar
+    ``all_reduce``), plus the aux loss once."""
+    cfg = par.cfg
+    if par.flat:
+        raise ValueError("the flat layout serves only (as the reference's "
+                         "dryrun lays it out); train on the default layout")
+    P = Blocks(par, params, par.pspecs)
+    tokens = batch["tokens"]
+    B, St = tokens.shape
+    h, aux = _forward(par, P, batch, aux=bool(cfg.num_experts))
+    Pf = cfg.num_frontend_tokens if cfg.frontend == "vision" else 0
+    ht = _copy(par, h[:, Pf:])                  # the hidden state that feeds the head
+    labels = F.pad(tokens[:, 1:], (0, 1))
+    mask = torch.ones((B, St), dtype=torch.bool, device=tokens.device)
+    mask[:, -1] = False
+    head = P["embed"].T if cfg.tie_embeddings else P["lm_head"]
+    ce = _ce_sum(par, ht, head, labels, mask) / _count(par, mask)
+    if cfg.mtp:
+        labels2 = F.pad(tokens[:, 2:], (0, 2))
+        mask2 = torch.ones((B, St), dtype=torch.bool, device=tokens.device)
+        mask2[:, -2:] = False
+        head2 = P["embed"].T if cfg.tie_embeddings else P["mtp_head"]
+        ce = ce + cfg.mtp_weight * (_ce_sum(par, ht, head2, labels2, mask2)
+                                    / _count(par, mask2))
+    with torch.no_grad():
+        client = _all_reduce(ce.detach().clone(), par.mesh, par.batch_axes) + aux.detach()
+    return ce + aux, client
 
 
 def _seq_block(par: Par, y: torch.Tensor, entry, n_loc: int) -> torch.Tensor:
@@ -758,7 +1035,7 @@ def _decode_block(par: Par, pattern, blk: Blocks, cblk: dict, cspecs: dict,
             x = x + mlp(par, p, L.apply_norm(cfg, p.sub("ln/"), x))
         elif mlp_kind == "moe":
             p = sub.sub("moe/")
-            x = x + moe(par, p, L.apply_norm(cfg, p.sub("ln/"), x))
+            x = x + moe(par, p, L.apply_norm(cfg, p.sub("ln/"), x))[0]
     return x
 
 
