@@ -164,6 +164,23 @@ Phases (any failed check or exception exits nonzero):
    inside the collectives (gloo), the share of greedy tokens equal to the
    one-process ``serve.run``'s, and 8 float32 teacher-forced steps against
    the one-process float32 decode (12a's tolerance, and within 1e-4).
+15. the supervisor over the mesh and the dry run: (a) inside 13a's card
+   and CPU ranks, ``run_supervised`` over ``run_mesh_scan`` at bert_100m
+   SMOKE on (data 2, model 2), every rank on its own shards, client 1's
+   payload NaN in rounds 2 and 3 under the original key: the recovery log
+   equal on all eight ranks (one rollback to round 2), the final params
+   card against CPU within phase 3's tolerance and d/1000, B1 once a round
+   run on every card rank (count set to 0 just before); (b) the dry run
+   (``launch/dryrun.py``: rank 0's step on ``meta`` shards under a fake
+   process group), run on the host in a process of its own from phase 2
+   on (no card visible to it), of 13b's bert_100m round and 13e's
+   dbrx_132b client step: its argument bytes exactly the card rank's
+   live shards, its peak within ``DRYRUN_PEAK_FACTOR`` of the card's
+   ``max_memory_allocated``, B1's meta route once in 13b, and 13e's
+   achieved TFLOP/s (its counted FLOPs over the measured step); (c) the
+   dry run's per-rank figures and status of jamba-1.5-large's and
+   deepseek-v3's client step at one block (deepseek's three dense layers
+   kept) on (data 1, model 4), which no card runs.
 
 Phases 4, 5, 6, 8b and 11b end with a breakdown of one round's time by step,
 and check each round's uplink bits (per-client payload times the
@@ -2872,11 +2889,12 @@ def _every_rank(mesh, values: list[float]) -> list[list[float]]:
 
 
 def mesh_smoke(mesh, device: str) -> dict:
-    """13a and 13c on one rank: three rounds of each case at bert_100m SMOKE
-    and of each family case at its SMOKE size on ``device``; rank 0 gets
-    every case's gathered params and history (the stream case's from its
-    shards), and whether the scanned driver equals its host loop on every
-    rank (13a's cross_device, 13c's guard and ring)."""
+    """13a, 13c and 15a on one rank: three rounds of each case at bert_100m
+    SMOKE and of each family case at its SMOKE size on ``device``; rank 0
+    gets every case's gathered params and history (the stream case's from
+    its shards), whether the scanned driver equals its host loop on every
+    rank (13a's cross_device, 13c's guard and ring), and the supervised
+    run's (``mesh_supervised``)."""
     meshes = {MESH_GRID[1]: mesh, MESH_SILO[1]: make_mesh(*MESH_SILO, device=device)}
     silo_tp = make_mesh(*MESH_SILO_TP, device=device)
     out, local = {}, {}
@@ -2937,6 +2955,7 @@ def mesh_smoke(mesh, device: str) -> dict:
     out["hooks"] = hooks
     out["hooks_scan_equals_host_loop"] = min(
         r[0] for r in _every_rank(mesh, [float(all(same))])) == 1.0
+    out["supervised"] = mesh_supervised(mesh)
     return out
 
 
@@ -2986,18 +3005,26 @@ def mesh_full(mesh, model: ModelConfig) -> dict:
     cs.LAUNCHES.n = 0
     clock["t"] = time.perf_counter()
     try:
-        _, _, hist, _ = mesh_run(mesh, model, topology, MAIN_SKETCH, mesh_data(model, True),
-                                 MESH_ROUNDS, chunk_size=1, on_chunk=per_round)
+        params, state, hist, _ = mesh_run(mesh, model, topology, MAIN_SKETCH,
+                                          mesh_data(model, True), MESH_ROUNDS,
+                                          chunk_size=1, on_chunk=per_round)
     finally:
         coll.__exit__()
         for name, fn in saved:
             setattr(mesh_train, name, fn)
     torch.cuda.synchronize()
     launches, peak = cs.LAUNCHES.n, peak_gib()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # a round's arguments on this rank: its shards, its state, its rows
+    smp = mesh_train.mesh_sampler(mesh, mesh_base_sampler(mesh_data(model, True)), topology)
+    rows = smp.sample(smp.init_state(mesh.device), 0)[1]
+    args = storage_bytes(params, state, rows)
+    del params, state, rows
     breakdown = {**times, "round": rounds_ms[-1],
                  "collectives": (coll.calls, coll.seconds * 1e3)}
     return dict(loss=hist["loss"], rounds_ms=rounds_ms, params1=params1,
                 ranks=_every_rank(mesh, [launches, peak]), breakdown=breakdown,
+                argument_bytes=args, peak_bytes=peak_bytes,
                 d_total=plan.d_total, b_total=plan.b_total,
                 b_bits=torch.empty((), dtype=MAIN_SKETCH.transport_dtype).element_size() * 8)
 
@@ -3134,7 +3161,7 @@ def mesh_composition(model: ModelConfig, device="cuda") -> dict:
     return {k: v.cpu() for k, v in new.items()}
 
 
-def phase_mesh() -> dict[str, int]:
+def phase_mesh() -> tuple[dict[str, int], dict]:
     """Phase 13: (a) each topology, FedOPT and a cohort at SMOKE size, and
     the family cases, on four ranks on the card (sharing it through gloo,
     or a card each through NCCL) against four CPU ranks that run beside
@@ -3145,9 +3172,11 @@ def phase_mesh() -> dict[str, int]:
     card against CPU; (d) two bert_100m rounds of each hooked run at full
     width; (e) the sharded client step alone at full width on the same
     ranks (``mesh_step_references`` first, ``report_mesh_client_step``).
-    Returns B1's launches summed over the
-    ranks: at G = 1 (13b and 13d's streamed fold) and at G = 4 (13d's
-    guarded and ring rounds)."""
+    Then 15a's report (``report_mesh_supervised``).  Returns B1's launches
+    summed over the ranks: at G = 1 (13b and 13d's streamed fold) and at G =
+    4 (13d's guarded and ring rounds); and rank 0's argument bytes and peak
+    in 13b and 13e (dbrx_132b, with its step's ms), which 15b holds the
+    dry run to."""
     t_refs = time.perf_counter()
     world = math.prod(MESH_GRID[0])
     shared = choose_backend(world, "cuda") == "gloo"
@@ -3246,8 +3275,13 @@ def phase_mesh() -> dict[str, int]:
     report_mesh_client_step(refs, card["step"])
     print(f"phase 13 {time.perf_counter() - t_refs:.1f} s (13e's references "
           f"{t0 - t_refs:.1f} s, its ranks {card['step_seconds']:.1f} s)")
-    return {"countsketch_mesh": sum(launches) + hooked[1],
-            "countsketch_mesh_g4": hooked[4]}
+    report_mesh_supervised(card["smoke"]["supervised"], cpu["supervised"])
+    dbrx = card["step"]["dbrx_132b"]
+    measured = {"13b": {k: full[k] for k in ("argument_bytes", "peak_bytes")},
+                "dbrx_132b": {k: dbrx[k] for k in ("argument_bytes", "peak_bytes",
+                                                   "step_ms")}}
+    return ({"countsketch_mesh": sum(launches) + hooked[1],
+             "countsketch_mesh_g4": hooked[4]}, measured)
 
 
 # 13e: the sharded client step alone at full width, one block, one local
@@ -3315,6 +3349,7 @@ def mesh_step_rank(mesh, arch: str, ref_dir: str) -> dict:
                                                      mmap=True), pspecs)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    args = storage_bytes(lp, batch)
     clock = CollectiveClock(dev)
     t0 = time.perf_counter()
     with clock:
@@ -3323,13 +3358,15 @@ def mesh_step_rank(mesh, arch: str, ref_dir: str) -> dict:
             pspecs)
         torch.cuda.synchronize(dev)
     step_ms = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    peak = peak_bytes / 2**30
     del lp
     torch.cuda.empty_cache()
     delta_cos = block_cosines(mesh, deltas, torch.load(os.path.join(ref_dir, "delta.pt"),
                                                        mmap=True), pspecs)
     return {"loss": float(losses[0]), "grad_cos": grad_cos, "delta_cos": delta_cos,
             "step_ms": step_ms, "collectives": (clock.calls, clock.seconds * 1e3),
+            "argument_bytes": args, "peak_bytes": peak_bytes,
             "ranks": _every_rank(mesh, [setup_peak, peak, step_ms])}
 
 
@@ -3912,6 +3949,231 @@ def report_mesh_hooks_full(runs: dict, b_total: int, where: str) -> dict[int, in
     return launches_by_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the supervisor over the mesh, and the dry run against the card
+# ---------------------------------------------------------------------------
+
+# 15a: a supervised SMOKE run on 13a's ranks, client 1's payload NaN in
+# rounds 2 and 3 under the run's original key (a transient fault)
+SUP_ROUNDS, SUP_CHUNK = 6, 2
+SUP_FAULT_ROUNDS = (2, 4)
+# 15c: the dry run's per-rank figures of the two families that exceed one card
+DRYRUN_STEP_ARCHS = ("jamba_1_5_large_398b", "deepseek_v3_671b")
+DRYRUN_PEAK_FACTOR = 1.5      # the dry run's peak against the card's, either way
+
+
+class MeshTransient:
+    """Client 1's NaN payload in ``SUP_FAULT_ROUNDS``, under the run's
+    original key only: any rekeyed retry is clean."""
+
+    def __init__(self, key0, num_clients: int):
+        self.key0, self.num_clients = key0, num_clients
+
+    def spec(self, t, base_key, device):
+        hit = base_key == self.key0 and SUP_FAULT_ROUNDS[0] <= t < SUP_FAULT_ROUNDS[1]
+        codes = [OK] * self.num_clients
+        if hit:
+            codes[1] = NAN
+        return faults_module._spec_from_codes(
+            torch.tensor(codes, dtype=torch.int32, device=device), 1e3)
+
+
+def mesh_supervised(mesh) -> dict:
+    """15a on a rank of 13a: ``run_supervised`` over ``run_mesh_scan``
+    (bert_100m SMOKE, cross_device, B1 at the uplink on the card), every
+    rank on its own shards, B1's count set to 0 just before.  Returns
+    every rank's recovery log, the gathered params, the history, every
+    rank's B1 launches and the run's seconds on this rank."""
+    model, topology = bert_100m.SMOKE, "cross_device"
+    cfg = safl_cfg(MESH_SMOKE_SKETCH)
+    data = mesh_data(model, False)
+    smp = mesh_train.mesh_sampler(mesh, mesh_base_sampler(data), topology)
+    _, pspecs = mesh_train._mesh_pspecs(model, topology)
+    params = local_shard(mesh, init_params(model, torch.Generator().manual_seed(0),
+                                           device=mesh.device), pspecs)
+    key = prng.key(0)
+    faults = MeshTransient(key, data.num_clients)
+
+    def launch(p, s, *, key, start_round, on_chunk):
+        return mesh_train.run_mesh_scan(model, cfg, mesh, smp, p, s, rounds=SUP_ROUNDS,
+                                        key=key, topology=topology, chunk_size=SUP_CHUNK,
+                                        start_round=start_round, on_chunk=on_chunk,
+                                        faults=faults)
+
+    cs.LAUNCHES.n = 0
+    t0 = time.perf_counter()
+    p, _, hist, log = run_supervised(launch, params, init_safl(cfg, params),
+                                     rounds=SUP_ROUNDS, key=key,
+                                     config=SupervisorConfig(max_retries=3),
+                                     mesh=mesh, pspecs=pspecs)
+    launches, seconds = cs.LAUNCHES.n, time.perf_counter() - t0
+    logs = [None] * dist.get_world_size()
+    dist.all_gather_object(logs, log)
+    full = gather_tree(mesh, p, pspecs)
+    return {"logs": logs, "params": {k: v.cpu() for k, v in full.items()},
+            "hist": hist, "launches": [int(r[0]) for r in _every_rank(mesh, [launches])],
+            "seconds": seconds}
+
+
+def report_mesh_supervised(card: dict, cpu: dict) -> int:
+    """15a's checks: the recovery log equal on every rank, card and CPU
+    (one rollback to round 2), the final params card against CPU within
+    phase 3's tolerance and the d/1000 allowance, B1 once a round run on
+    every card rank.  Returns B1's launches summed over the card ranks."""
+    print("== phase 15a: the supervisor over the mesh, bert_100m SMOKE, cross_device "
+          "(data 2, model 2), a transient NaN payload ==")
+    log = card["logs"][0]
+    print(f"mesh supervised: {format_recovery_log(log)} ({card['seconds']:.1f} s on "
+          f"card rank 0, {cpu['seconds']:.1f} s on CPU rank 0)")
+    check(all(l == log for l in card["logs"] + cpu["logs"]),
+          f"mesh supervised: the recovery logs differ: card {card['logs']}, "
+          f"CPU {cpu['logs']}")
+    check(len(log) == 1 and log[0]["t_resume"] == SUP_FAULT_ROUNDS[0],
+          f"mesh supervised: expected one rollback to round {SUP_FAULT_ROUNDS[0]}: {log}")
+    d = sum(v.numel() for v in cpu["params"].values())
+    compare_card_cpu("mesh supervised", (card["params"], None, card["hist"]),
+                     (cpu["params"], None, cpu["hist"]), allowed=d // 1000)
+    runs = SUP_ROUNDS + SUP_CHUNK * len(log)
+    print(f"mesh supervised: B1 launches by card rank {card['launches']} "
+          f"({runs} rounds run a rank, the retried ones included)")
+    check(card["launches"] == [runs] * len(card["launches"]),
+          f"mesh supervised: B1 launches {card['launches']}, not {runs} a rank")
+    return sum(card["launches"])
+
+
+def step_block(model: ModelConfig) -> ModelConfig:
+    """``one_block`` behind the leading dense layers: deepseek-v3's three
+    dense layers and one MoE block (the layers outside the scan stay)."""
+    return dataclasses.replace(one_block(model), num_layers=model.first_dense_layers
+                               + len(model.scan_blocks()[1]))
+
+
+def storage_bytes(*trees) -> int:
+    """The bytes of the distinct storages under ``trees`` (nested dicts)."""
+    seen, total = set(), 0
+
+    def walk(t):
+        nonlocal total
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            if st._cdata not in seen:
+                seen.add(st._cdata)
+                total += st.nbytes()
+    for t in trees:
+        walk(t)
+    return total
+
+
+def dryrun_host(out_path: str) -> None:
+    """15b and 15c in a process of their own on the host (no card): the
+    dry run (``launch/dryrun.py``: rank 0's step on ``meta`` shards under a
+    fake process group) of 13b's bert_100m round, 13e's dbrx_132b client
+    step and the client step of ``DRYRUN_STEP_ARCHS`` at 13e's size; each
+    one's counts, or the port's refusal, into ``out_path`` (JSON)."""
+    from repro_torch.launch import dryrun
+    data = mesh_data(bert_100m.CONFIG, True)
+    tokens = lambda shape: {"tokens": torch.empty(shape, dtype=torch.int64, device="meta")}
+    step_cfg = dataclasses.replace(safl_cfg(MAIN_SKETCH), local_steps=1)
+    cases = [("13b", bert_100m.CONFIG, MESH_GRID, "train",
+              tokens((data.num_clients, 2, 8 // 2, data.seq_len)), safl_cfg(MAIN_SKETCH))]
+    cases += [(arch, step_block(get_config(arch)), MESH_STEP_GRID, "client",
+               tokens((1, 1, 1, MESH_STEP_TOKENS)), step_cfg)
+              for arch in MESH_STEP_ARCHS[:1] + DRYRUN_STEP_ARCHS]
+    out = {}
+    for name, model, (sizes, axes), kind, batch, cfg in cases:
+        t0 = time.perf_counter()
+        try:
+            run = dryrun.dry_run(model, sizes, axes, {"batch": batch}, kind=kind,
+                                 safl=cfg)
+            out[name] = {"status": "ok", "counts": run["counts"]}
+        except ValueError as e:
+            out[name] = {"status": f"refused: {e}"}
+        out[name]["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def start_dryrun_host(out_path: str) -> subprocess.Popen:
+    """``dryrun_host`` in a background process on the host, with no card
+    visible to it, at a lower priority than the card's phases; its output
+    goes to ``out_path + ".log"``."""
+    here = str(Path(__file__).resolve().parent)
+    code = (f"import os, sys; os.nice(5); sys.path.insert(0, {here!r}); "
+            f"import chip_smoke; chip_smoke.dryrun_host({out_path!r})")
+    with open(out_path + ".log", "w") as log:
+        return subprocess.Popen([sys.executable, "-c", code],
+                                env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                                stdout=log, stderr=subprocess.STDOUT)
+
+
+def report_dryrun(proc: subprocess.Popen, out_path: str, measured: dict) -> None:
+    """15b and 15c: the dry run's rank-0 argument bytes against the card
+    ranks' live shards in 13b and 13e (exactly), its peak against the
+    card's ``max_memory_allocated`` (within ``DRYRUN_PEAK_FACTOR``), 13e's
+    achieved TFLOP/s from its counted FLOPs, and the per-rank figures of
+    ``DRYRUN_STEP_ARCHS``."""
+    t0 = time.perf_counter()
+    proc.wait(timeout=600)
+    check(proc.returncode == 0,
+          f"the dry run failed:\n{Path(out_path + '.log').read_text()[-3000:]}")
+    with open(out_path) as f:
+        got = json.load(f)
+    print(f"== phase 15b: the dry run (meta shards, a fake process group, on the "
+          f"host beside the card's phases; waited {time.perf_counter() - t0:.1f} s "
+          f"for it) against the card ==")
+    for name, what in (("13b", "bert_100m round on (data 2, model 2)"),
+                       ("dbrx_132b", "dbrx_132b client step, one block, (data 1, model 4)")):
+        r, m = got[name], measured[name]
+        check(r["status"] == "ok", f"dry run {name}: {r['status']}")
+        c = r["counts"]
+        mem = c["memory"]
+        ratio = mem["peak_bytes"] / m["peak_bytes"]
+        print(f"dry run {what}: {r['seconds']:.1f} s to trace; rank 0 arguments "
+              f"{mem['argument_bytes']:,} B (the card rank's live shards "
+              f"{m['argument_bytes']:,} B); peak {mem['peak_bytes'] / 2**30:.2f} GiB "
+              f"against the card's {m['peak_bytes'] / 2**30:.2f} GiB (ratio "
+              f"{ratio:.3f}); {c['flops']:.4e} FLOPs, collectives "
+              f"{c['collective_calls']} ({sum(c['collective_bytes'].values()):,} B), "
+              f"kernels {c['kernels']}")
+        if name == "13b":
+            check(c["kernels"].get("countsketch_clients", {}).get("launches") == 1,
+                  f"dry run 13b: B1's meta route {c['kernels']}, not one launch")
+            # the workspace the meta route holds is the source's layout
+            n, b = 66_046_464, 1_321_033
+            width, large = cs.route(n, b)
+            ints = (cs._fn("cs_work_ints")(n, -(-b // width), int(large)),
+                    cs.work_ints(n, -(-b // width), large))
+            print(f"B1's workspace at the mesh uplink: {ints[0]:,} int32 (the meta "
+                  f"route's model {ints[1]:,})")
+            check(ints[0] == ints[1], f"B1's workspace model {ints}")
+        check(mem["argument_bytes"] == m["argument_bytes"],
+              f"dry run {name}: argument bytes {mem['argument_bytes']} against "
+              f"{m['argument_bytes']}")
+        check(1 / DRYRUN_PEAK_FACTOR <= ratio <= DRYRUN_PEAK_FACTOR,
+              f"dry run {name}: peak ratio {ratio:.3f} outside {DRYRUN_PEAK_FACTOR}x")
+    c, ms = got["dbrx_132b"]["counts"], measured["dbrx_132b"]["step_ms"]
+    print(f"13e dbrx_132b: {c['flops']:.4e} FLOPs counted on rank 0 in "
+          f"{ms:.1f} ms: {c['flops'] / ms / 1e9:.2f} TFLOP/s achieved (of the "
+          f"card's 989 bf16 dense, four ranks sharing it)")
+    print("== phase 15c: the dry run of the client step that exceeds one card, one "
+          f"block at full width, {MESH_STEP_TOKENS} tokens, bf16, on "
+          f"{dict(zip(MESH_STEP_GRID[1], MESH_STEP_GRID[0]))} (no card) ==")
+    for arch in DRYRUN_STEP_ARCHS:
+        r = got[arch]
+        if r["status"] != "ok":
+            print(f"{arch}: {r['status']} ({r['seconds']:.1f} s)")
+            continue
+        mem = r["counts"]["memory"]
+        print(f"{arch}: ok; per rank: arguments {mem['argument_bytes'] / 2**30:.2f} GiB, "
+              f"outputs {mem['output_bytes'] / 2**30:.2f}, temporaries "
+              f"{mem['temp_bytes'] / 2**30:.2f}, peak {mem['peak_bytes'] / 2**30:.2f} "
+              f"GiB; {r['counts']['flops']:.4e} FLOPs, collectives "
+              f"{r['counts']['collective_calls']} ({r['seconds']:.1f} s to trace)")
+
+
 def print_cs_launches(name: str, n: dict[str, int]) -> None:
     print(f"{name}: countsketch route called {n['countsketch']} times, "
           f"{n['countsketch_device']} device launches (kernels and memsets), "
@@ -3959,6 +4221,21 @@ def main() -> int:
                 print(f"  [{name}] {line.strip()}")
 
     laps.lap("1")
+    dry_dir = tempfile.TemporaryDirectory(prefix="dryrun_")
+    dry_out = os.path.join(dry_dir.name, "dryrun.json")
+    dry = start_dryrun_host(dry_out)
+    try:
+        return run_phases(laps, dry, dry_out)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        dry_dir.cleanup()
+
+
+def run_phases(laps: Laps, dry: subprocess.Popen, dry_out: str) -> int:
+    """Phases 2 to 15 (the dry run ``dry`` started in the background) and
+    the closing lines."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     entries = phase_kernels(gen)
     torch.cuda.empty_cache()
@@ -4043,12 +4320,15 @@ def main() -> int:
           f"none, as in the reference)")
     laps.lap("12")
     torch.cuda.empty_cache()
-    for name, calls in phase_mesh().items():
+    calls_by_name, measured = phase_mesh()
+    for name, calls in calls_by_name.items():
         by_name[name]["launches"] = calls
     laps.lap("13")
     torch.cuda.empty_cache()
     phase_serve_mesh()
     laps.lap("14")
+    report_dryrun(dry, dry_out, measured)
+    laps.lap("15")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")

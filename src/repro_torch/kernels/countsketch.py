@@ -195,6 +195,18 @@ def countsketch_clients_cuda(x: torch.Tensor, h: torch.Tensor, b: int, *,
     return out
 
 
+def work_ints(n: int, nbins: int, coarse: bool) -> int:
+    """The int32 scratch a call holds while it runs: ``layout`` of the
+    source (``cs_work_ints``), each array from 16 bytes on."""
+    cap, scan, buckets = _LIMITS["CS_CAP"], _LIMITS["CS_SCAN"], _LIMITS["CS_BUCKETS"]
+    p = 0
+    for ints in (8 * n, 8 * n if coarse else 0, n, n // (cap + 1) + 1, nbins,
+                 nbins + 1, -(-nbins // scan), 2, nbins, 1, buckets,
+                 n // (cap + 1) + 1):
+        p = ((p + 3) & ~3) + ints
+    return p
+
+
 def _setup(x: torch.Tensor, h: torch.Tensor, b: int, width: int, large: bool):
     """(shift, nbins, h64, SMs, stream, scratch) of a call."""
     nbins = -(-b // width)

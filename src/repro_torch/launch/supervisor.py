@@ -35,6 +35,22 @@ leaf is there: a host tensor handed to a round would run the rest of the
 run on the CPU.  The returned history is the concatenation of the good
 chunks that stand at exit, and the recovery log is a list of
 ``{retry, t_fault, t_resume, reason}`` dicts.
+
+**Over the mesh** (``mesh=``, ``launch.train.run_mesh_scan`` as the
+launcher): every rank runs the supervisor on its own shards, and the
+ranks agree on each verdict before any of them snapshots, checkpoints or
+rolls back.  The verdict is one ``all_reduce`` (MIN) over the world
+group of the smallest rank that saw a bad chunk -- its history (the same
+on every rank), a fired flag, or non-finite values in its own shards --
+and that rank's reason reaches the others through
+``broadcast_object_list``.  So every rank raises the same fault, pops the
+same snapshot and rekeys with the same key; a rank that rewound alone
+would leave the others' collectives waiting for rounds it no longer runs.
+Snapshots stay each rank's host copies of its shards.  ``ckpt_path``
+writes the whole tree in the reference's layout: every rank takes part in
+one ``gather_tree`` of the chunk's shards, and rank 0 writes, so the
+one-process loader resumes from it.  Recovery events go to ``stream`` on
+rank 0 only, as the mesh driver's shards do.
 """
 
 from __future__ import annotations
@@ -45,6 +61,7 @@ from typing import Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import prng
 
@@ -135,10 +152,41 @@ def _on_device(tree, device: torch.device, what: str) -> None:
                            f"run's device {device}")
 
 
+def _agree(mesh, bad: bool, reason: str) -> tuple[bool, str]:
+    """The mesh's verdict on a chunk, the same on every rank: bad if any
+    rank found it bad, with the reason of the smallest such rank.  One
+    ``all_reduce`` of that rank's index over the world group, then, for a
+    bad chunk, its reason broadcast as an object.  Without a mesh, this
+    rank's own verdict."""
+    if mesh is None or mesh.size == 1:
+        return bad, reason
+    first = torch.tensor([mesh.rank if bad else mesh.size], dtype=torch.int64,
+                         device=mesh.device)
+    dist.all_reduce(first, op=dist.ReduceOp.MIN)
+    src = int(first.item())
+    if src == mesh.size:
+        return False, ""
+    box = [reason]
+    dist.broadcast_object_list(box, src=src)
+    return True, box[0]
+
+
+def _state_pspecs(state, pspecs):
+    """The specs of a server state laid out as ``launch.train.opt_pspecs``
+    does: every dict keyed like the params takes ``pspecs``, every other
+    leaf is replicated."""
+    if isinstance(state, Mapping):
+        if state and set(state) == set(pspecs):
+            return pspecs
+        return {k: _state_pspecs(v, pspecs) for k, v in state.items()}
+    return ()
+
+
 def run_supervised(launch: Callable, params, state, *, rounds: int,
                    key: prng.Key, config: SupervisorConfig | None = None,
                    on_chunk=None, ckpt_path: str | None = None,
-                   start_round: int = 0, stream=None):
+                   start_round: int = 0, stream=None, mesh=None,
+                   pspecs=None):
     """Supervise a chunked driver run with rollback-and-rekey retries.
 
     ``launch(params, state, *, key, start_round, on_chunk) -> (params,
@@ -162,8 +210,17 @@ def run_supervised(launch: Callable, params, state, *, rounds: int,
     own: the shards are the record, a retried span re-emits its rounds in
     new shards, and the returned ``history`` is ``{}``.
 
+    ``mesh`` (a live ``launch.mesh.Mesh``) supervises a mesh run on this
+    rank's shards (module docstring); ``params``/``state`` are then the
+    rank's shards and ``pspecs`` their specs, which a checkpoint of the
+    whole tree needs.  Every rank of the mesh must call it.
+
     Returns ``(params, state, history, recovery_log)``."""
     config = config or SupervisorConfig()
+    if mesh is not None and ckpt_path is not None and pspecs is None:
+        raise ValueError("a mesh checkpoint gathers the whole tree: pass the "
+                         "shards' pspecs")
+    lead = mesh is None or mesh.rank == 0
     device = _tensors(params)[0].device
     base_key = key
     cur_key = key
@@ -178,13 +235,16 @@ def run_supervised(launch: Callable, params, state, *, rounds: int,
         _on_device({"params": p, "state": s}, device,
                    "the chunk's parameters and state")
         bad, reason = chunk_is_bad(hist, config.divergence)
+        hp = hs = None
+        if not bad:
+            hp, hs = _host(p), _host(s)
+            if not _finite_tree(hp):
+                # detection lag: the last round's loss predates its own
+                # poisoned server update -- never snapshot a non-finite cursor
+                bad, reason = True, "non-finite params at chunk end"
+        bad, reason = _agree(mesh, bad, reason)
         if bad:
             raise _ChunkFault(t_done, reason)
-        hp, hs = _host(p), _host(s)
-        if not _finite_tree(hp):
-            # detection lag: the last round's loss predates its own poisoned
-            # server update -- never snapshot a non-finite cursor
-            raise _ChunkFault(t_done, "non-finite params at chunk end")
         t_start = snaps[-1]["t"]
         snaps.append({"t": t_done, "params": hp, "state": hs})
         if len(snaps) > config.keep_snapshots:
@@ -193,12 +253,18 @@ def run_supervised(launch: Callable, params, state, *, rounds: int,
             hists.append((t_start, t_done, hist))
         if ckpt_path is not None:
             from repro_torch.checkpoint.io import save_checkpoint
-            save_checkpoint(
-                ckpt_path,
-                {"params": hp, "opt": hs,
-                 "cursor": {"t": np.asarray(t_done),
-                            "key": np.asarray(cur_key, dtype=np.uint32)}},
-                step=t_done)
+            cp, cs = hp, hs
+            if mesh is not None:        # the whole tree, written by rank 0
+                from repro_torch.models.sharding import gather_tree
+                cp = _host(gather_tree(mesh, p, pspecs))
+                cs = _host(gather_tree(mesh, s, _state_pspecs(s, pspecs)))
+            if lead:
+                save_checkpoint(
+                    ckpt_path,
+                    {"params": cp, "opt": cs,
+                     "cursor": {"t": np.asarray(t_done),
+                                "key": np.asarray(cur_key, dtype=np.uint32)}},
+                    step=t_done)
         if on_chunk is not None:
             on_chunk(t_done, p, s, hist)
 
@@ -212,8 +278,10 @@ def run_supervised(launch: Callable, params, state, *, rounds: int,
             p_out, s_out, _ = launch(p_in, s_in, key=cur_key,
                                      start_round=top["t"],
                                      on_chunk=sup_on_chunk)
-            if not _finite_tree(p_out):
-                raise _ChunkFault(rounds, "non-finite final params")
+            bad, reason = _agree(mesh, not _finite_tree(p_out),
+                                 "non-finite final params")
+            if bad:
+                raise _ChunkFault(rounds, reason)
         except _ChunkFault as f:
             retries += 1
             if retries > config.max_retries:
@@ -232,7 +300,7 @@ def run_supervised(launch: Callable, params, state, *, rounds: int,
             cur_key = prng.fold_in(base_key, _REKEY_TAG + retries)
             log.append({"retry": retries, "t_fault": int(f.t_done),
                         "t_resume": int(t_res), "reason": f.reason})
-            if stream is not None:
+            if stream is not None and lead:
                 stream.write_event(
                     "recovery", retry=retries, t_fault=int(f.t_done),
                     t_resume=int(t_res),

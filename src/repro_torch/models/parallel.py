@@ -516,6 +516,15 @@ def mla_attention_decode(par: Par, p: Blocks, x: torch.Tensor, pos: torch.Tensor
 # full-sequence attention (prefill and the encoder): the rank's heads
 # ---------------------------------------------------------------------------
 
+def check_heads(cfg, q_cols: int, k_cols: int, n: int) -> None:
+    """Raise where a rank's q or k/v columns (``q_cols``, ``k_cols`` of a
+    cut over ``n`` ranks) are not whole heads: GSPMD would reshard them,
+    the port computes whole heads only."""
+    if q_cols % cfg.hd or k_cols % cfg.hd:
+        raise ValueError(f"{cfg.name}: {cfg.num_heads} query and {cfg.num_kv_heads} "
+                         f"key/value heads do not split over {n} ranks")
+
+
 def attention(par: Par, p: Blocks, x: torch.Tensor, positions: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -531,9 +540,7 @@ def attention(par: Par, p: Blocks, x: torch.Tensor, positions: torch.Tensor, *,
         k, v = _proj(par, enc_out, [p["wk"], p["wv"]])
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if q.shape[-1] % hd or k.shape[-1] % hd:
-        raise ValueError(f"{cfg.name}: {cfg.num_heads} query and {cfg.num_kv_heads} "
-                         f"key/value heads do not split over {par.n} ranks")
+    check_heads(cfg, q.shape[-1], k.shape[-1], par.n)
     Hq, Hkv = q.shape[-1] // hd, k.shape[-1] // hd
     T = k.shape[1]
     q = q.reshape(B, S, Hq, hd)
