@@ -181,6 +181,24 @@ Phases (any failed check or exception exits nonzero):
    dry run's per-rank figures and status of jamba-1.5-large's and
    deepseek-v3's client step at one block (deepseek's three dense layers
    kept) on (data 1, model 4), which no card runs.
+16. whole heads on a model axis that splits them
+   (``models/parallel.py::head_plan``; no TPU kernel on this path, the
+   launch counts set to 0 before each part and printed after): (a) inside
+   13e's four ranks on (data 1, model 4), SMOKE llama3.2-1b and h2o-danube
+   (their 2 key/value heads split) and qwen2-7b and whisper at 6 query
+   heads of 32 (the query heads split too), each one's prefill in the
+   default and FSDP layouts and one client step (``client_deltas_sharded``)
+   against the one-process steps the rank runs on the card, within phase
+   3's tolerance (the delta also within ``PART_REL_TOL`` of its largest
+   entry); (b) qwen2-7b at full width, one block, on (data 1, model 8),
+   eight ranks sharing the card through gloo, where a rank holds 3.5
+   query heads and half a key/value head: the float32 prefill of 2 x 512
+   tokens against the one-process ``make_prefill_step`` within phase 3's
+   tolerance, and 13e's bf16 client step of one 512-token client, each
+   leaf's gradient and delta cosine against the one-process step's; rank
+   0's ms and collective calls, every rank's peak; (c) the dry run of
+   both (from 15b's host process): argument bytes exactly the card rank's
+   live shards, the peaks' ratio printed.
 
 Phases 4, 5, 6, 8b and 11b end with a breakdown of one round's time by step,
 and check each round's uplink bits (per-client payload times the
@@ -375,6 +393,11 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_counts() -> tuple:
+    """Every kernel wrapper's launch count."""
+    return (cs.LAUNCHES, fw.LAUNCHES, *gs.LAUNCHES.values())
 
 
 def peak_gib() -> float:
@@ -3108,7 +3131,7 @@ def mesh_card_rank(mesh, cpu_done: str, step_refs: str) -> dict:
     CPU ranks run theirs), then, once the file ``cpu_done`` exists (the CPU
     ranks have ended), 13b and 13d on a host with no other ranks, then 13e
     on the same ranks laid out as ``MESH_STEP_GRID`` (its one-process
-    references under ``step_refs``)."""
+    references under ``step_refs``), and 16a on those ranks."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smoke = mesh_smoke(mesh, "cuda")
@@ -3118,8 +3141,11 @@ def mesh_card_rank(mesh, cpu_done: str, step_refs: str) -> dict:
            "hooks": mesh_full_hooks(mesh, bert_100m.CONFIG)}
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out["step"] = mesh_step_ranks(make_mesh(*MESH_STEP_GRID, device="cuda"), step_refs)
+    step_mesh = make_mesh(*MESH_STEP_GRID, device="cuda")
+    out["step"] = mesh_step_ranks(step_mesh, step_refs)
     out["step_seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    out["part"] = part_heads_smoke(step_mesh)
     return out
 
 
@@ -3176,7 +3202,7 @@ def phase_mesh() -> tuple[dict[str, int], dict]:
     summed over the ranks: at G = 1 (13b and 13d's streamed fold) and at G =
     4 (13d's guarded and ring rounds); and rank 0's argument bytes and peak
     in 13b and 13e (dbrx_132b, with its step's ms), which 15b holds the
-    dry run to."""
+    dry run to, and 16a's results."""
     t_refs = time.perf_counter()
     world = math.prod(MESH_GRID[0])
     shared = choose_backend(world, "cuda") == "gloo"
@@ -3279,7 +3305,8 @@ def phase_mesh() -> tuple[dict[str, int], dict]:
     dbrx = card["step"]["dbrx_132b"]
     measured = {"13b": {k: full[k] for k in ("argument_bytes", "peak_bytes")},
                 "dbrx_132b": {k: dbrx[k] for k in ("argument_bytes", "peak_bytes",
-                                                   "step_ms")}}
+                                                   "step_ms")},
+                "part_smoke": card["part"]}
     return ({"countsketch_mesh": sum(launches) + hooked[1],
              "countsketch_mesh_g4": hooked[4]}, measured)
 
@@ -3446,48 +3473,53 @@ def mesh_step_references(ref_dir: str) -> dict:
 def report_mesh_client_step(refs: dict, got: dict) -> None:
     """Phase 13e's report: for dbrx_132b (MoE) and falcon_mamba_7b (Mamba)
     at full width, one block, the sharded client step (``mesh_step_rank``)
-    against the one-process step (``mesh_step_reference``).  Each leaf's
-    gradient is held to a cosine of ``ZOO_MIN_COS`` (partial sums are
-    rounded to bfloat16 before the row-parallel sum, 11c's reason), and so
-    is the delta: all leaves laid end to end, and each leaf whose step the
-    bfloat16 weights resolve.  A step below half a weight's bfloat16
-    spacing (the norms' scales at 1.0 take steps of 2^-8) leaves a delta of
-    whole spacings whose pattern turns on the step's last bits: those
-    leaves' delta cosines are printed, their gradients checked.  Then the
-    ranks' peaks."""
+    against the one-process step (``mesh_step_reference``),
+    ``check_client_step`` each."""
     world = math.prod(MESH_STEP_GRID[0])
     grid = dict(zip(MESH_STEP_GRID[1], MESH_STEP_GRID[0]))
     print(f"== phase 13e: the sharded client step at full width, one block, "
           f"{MESH_STEP_TOKENS} tokens, bf16, {world} ranks on {grid} ==")
     for arch in MESH_STEP_ARCHS:
-        ref, out = refs[arch], got[arch]
-        pspecs = mesh_train._mesh_pspecs(one_block(get_config(arch)), "cross_device")[1]
-        (gcos, g_all), (dcos, d_all) = out["grad_cos"], out["delta_cos"]
-        calls, coll_ms = out["collectives"]
-        print(f"{arch}: sharded step {out['step_ms']:.1f} ms on rank 0 after a warm-up "
-              f"({calls} collective calls, {coll_ms:.1f} ms inside them), loss "
-              f"{out['loss']:.5f} (one process {ref['loss']:.5f}, {ref['ms']:.1f} ms)")
-        for k in pspecs:
-            print(f"  {k}: gradient cosine {gcos[k][0]:.5f} (max abs diff "
-                  f"{gcos[k][1]:.3e}); delta cosine {dcos[k][0]:.5f} (max abs diff "
-                  f"{dcos[k][1]:.3e})" + ("" if ref["resolved"][k] else
-                                          ", the step below its weights' spacing"))
-        print(f"{arch}: all leaves laid end to end: gradient cosine {g_all:.5f}, delta "
-              f"cosine {d_all:.5f}")
-        peaks = [max(r[0], r[1]) for r in out["ranks"]]
-        for i, r in enumerate(out["ranks"]):
-            print(f"  rank {i}: peak {r[0]:.2f} GiB building its shards and the "
-                  f"gradient, {r[1]:.2f} GiB in the step; step {r[2]:.1f} ms")
-        print(f"{arch}: the ranks' peaks sum to {sum(peaks):.2f} GiB (one process "
-              f"{ref['peak']:.2f})")
-        check(math.isfinite(out["loss"])
-              and abs(out["loss"] - ref["loss"]) <= 1e-2 * abs(ref["loss"]),
-              f"{arch}: sharded loss {out['loss']} against {ref['loss']}")
-        low = [k for k in pspecs if gcos[k][0] < ZOO_MIN_COS
-               or (ref["resolved"][k] and dcos[k][0] < ZOO_MIN_COS)]
-        check(not low and min(g_all, d_all) >= ZOO_MIN_COS,
-              f"{arch}: cosines below {ZOO_MIN_COS}: {low}, {g_all}, {d_all}")
-        check(sum(peaks) < 75.0, f"{arch}: the ranks' peaks sum to {sum(peaks):.1f} GiB")
+        check_client_step(arch, refs[arch], got[arch])
+
+
+def check_client_step(arch: str, ref: dict, out: dict) -> None:
+    """One arch's sharded client step against its one-process step.  Each
+    leaf's gradient is held to a cosine of ``ZOO_MIN_COS`` (partial sums
+    are rounded to bfloat16 before the row-parallel sum, 11c's reason),
+    and so is the delta: all leaves laid end to end, and each leaf whose
+    step the bfloat16 weights resolve.  A step below half a weight's
+    bfloat16 spacing (the norms' scales at 1.0 take steps of 2^-8) leaves
+    a delta of whole spacings whose pattern turns on the step's last bits:
+    those leaves' delta cosines are printed, their gradients checked.
+    Then the ranks' peaks."""
+    pspecs = mesh_train._mesh_pspecs(one_block(get_config(arch)), "cross_device")[1]
+    (gcos, g_all), (dcos, d_all) = out["grad_cos"], out["delta_cos"]
+    calls, coll_ms = out["collectives"]
+    print(f"{arch}: sharded step {out['step_ms']:.1f} ms on rank 0 after a warm-up "
+          f"({calls} collective calls, {coll_ms:.1f} ms inside them), loss "
+          f"{out['loss']:.5f} (one process {ref['loss']:.5f}, {ref['ms']:.1f} ms)")
+    for k in pspecs:
+        print(f"  {k}: gradient cosine {gcos[k][0]:.5f} (max abs diff "
+              f"{gcos[k][1]:.3e}); delta cosine {dcos[k][0]:.5f} (max abs diff "
+              f"{dcos[k][1]:.3e})" + ("" if ref["resolved"][k] else
+                                      ", the step below its weights' spacing"))
+    print(f"{arch}: all leaves laid end to end: gradient cosine {g_all:.5f}, delta "
+          f"cosine {d_all:.5f}")
+    peaks = [max(r[0], r[1]) for r in out["ranks"]]
+    for i, r in enumerate(out["ranks"]):
+        print(f"  rank {i}: peak {r[0]:.2f} GiB building its shards and the "
+              f"gradient, {r[1]:.2f} GiB in the step; step {r[2]:.1f} ms")
+    print(f"{arch}: the ranks' peaks sum to {sum(peaks):.2f} GiB (one process "
+          f"{ref['peak']:.2f})")
+    check(math.isfinite(out["loss"])
+          and abs(out["loss"] - ref["loss"]) <= 1e-2 * abs(ref["loss"]),
+          f"{arch}: sharded loss {out['loss']} against {ref['loss']}")
+    low = [k for k in pspecs if gcos[k][0] < ZOO_MIN_COS
+           or (ref["resolved"][k] and dcos[k][0] < ZOO_MIN_COS)]
+    check(not low and min(g_all, d_all) >= ZOO_MIN_COS,
+          f"{arch}: cosines below {ZOO_MIN_COS}: {low}, {g_all}, {d_all}")
+    check(sum(peaks) < 75.0, f"{arch}: the ranks' peaks sum to {sum(peaks):.1f} GiB")
 
 
 # ---------------------------------------------------------------------------
@@ -3715,7 +3747,7 @@ def serve_mesh_rank(mesh, prompt: torch.Tensor, f32_paths: dict) -> dict:
     process (the path reaches none)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counts = (cs.LAUNCHES, fw.LAUNCHES, *gs.LAUNCHES.values())
+    counts = kernel_counts()
     for c in counts:
         c.n = 0
     t0 = time.perf_counter()
@@ -4068,11 +4100,12 @@ def storage_bytes(*trees) -> int:
 
 
 def dryrun_host(out_path: str) -> None:
-    """15b and 15c in a process of their own on the host (no card): the
-    dry run (``launch/dryrun.py``: rank 0's step on ``meta`` shards under a
-    fake process group) of 13b's bert_100m round, 13e's dbrx_132b client
-    step and the client step of ``DRYRUN_STEP_ARCHS`` at 13e's size; each
-    one's counts, or the port's refusal, into ``out_path`` (JSON)."""
+    """15b, 15c and 16c in a process of their own on the host (no card):
+    the dry run (``launch/dryrun.py``: rank 0's step on ``meta`` shards
+    under a fake process group) of 13b's bert_100m round, 13e's dbrx_132b
+    client step, the client step of ``DRYRUN_STEP_ARCHS`` at 13e's size
+    and 16b's prefill and client step; each one's counts, or the port's
+    refusal, into ``out_path`` (JSON)."""
     from repro_torch.launch import dryrun
     data = mesh_data(bert_100m.CONFIG, True)
     tokens = lambda shape: {"tokens": torch.empty(shape, dtype=torch.int64, device="meta")}
@@ -4082,6 +4115,10 @@ def dryrun_host(out_path: str) -> None:
     cases += [(arch, step_block(get_config(arch)), MESH_STEP_GRID, "client",
                tokens((1, 1, 1, MESH_STEP_TOKENS)), step_cfg)
               for arch in MESH_STEP_ARCHS[:1] + DRYRUN_STEP_ARCHS]
+    cases += [("16b prefill", part_full_model32(), PART_FULL_GRID, "prefill",
+               tokens(PART_FULL_PREFILL), None),
+              ("16b client", step_block(get_config(PART_FULL_ARCH)), PART_FULL_GRID,
+               "client", tokens((1, 1, 1, MESH_STEP_TOKENS)), step_cfg)]
     out = {}
     for name, model, (sizes, axes), kind, batch, cfg in cases:
         t0 = time.perf_counter()
@@ -4109,12 +4146,12 @@ def start_dryrun_host(out_path: str) -> subprocess.Popen:
                                 stdout=log, stderr=subprocess.STDOUT)
 
 
-def report_dryrun(proc: subprocess.Popen, out_path: str, measured: dict) -> None:
+def report_dryrun(proc: subprocess.Popen, out_path: str, measured: dict) -> dict:
     """15b and 15c: the dry run's rank-0 argument bytes against the card
     ranks' live shards in 13b and 13e (exactly), its peak against the
     card's ``max_memory_allocated`` (within ``DRYRUN_PEAK_FACTOR``), 13e's
     achieved TFLOP/s from its counted FLOPs, and the per-rank figures of
-    ``DRYRUN_STEP_ARCHS``."""
+    ``DRYRUN_STEP_ARCHS``.  Returns every case's result (16c reads its own)."""
     t0 = time.perf_counter()
     proc.wait(timeout=600)
     check(proc.returncode == 0,
@@ -4172,6 +4209,232 @@ def report_dryrun(proc: subprocess.Popen, out_path: str, measured: dict) -> None
               f"{mem['temp_bytes'] / 2**30:.2f}, peak {mem['peak_bytes'] / 2**30:.2f} "
               f"GiB; {r['counts']['flops']:.4e} FLOPs, collectives "
               f"{r['counts']['collective_calls']} ({r['seconds']:.1f} s to trace)")
+    return got
+
+
+# ---------------------------------------------------------------------------
+# phase 16: whole heads on a model axis that cuts them (ROADMAP A-15)
+# ---------------------------------------------------------------------------
+
+# 16a, on 13e's (data 1, model 4) ranks: (name, arch, SMOKE overrides).  The
+# first two split their 2 key/value heads over 4 ranks, the variants their
+# 6 query heads too (qwen2-7b with its q/k/v biases; whisper's encoder and
+# cross-attention)
+PART_SMOKE_CASES = (("llama3_2_1b", "llama3_2_1b", {}),
+                    ("h2o_danube_1_8b", "h2o_danube_1_8b", {}),
+                    ("qwen2_7b 6/2 heads", "qwen2_7b",
+                     dict(num_heads=6, num_kv_heads=2, head_dim=32)),
+                    ("whisper_large_v3 6/6 heads", "whisper_large_v3",
+                     dict(num_heads=6, num_kv_heads=6, head_dim=32)))
+PART_SMOKE_B, PART_SMOKE_S = 4, 16      # 16a's prefill batch, and its client's
+# 16a's client step: the delta's largest gap over the reference's largest
+# entry, besides phase 3's tolerance (float32 sums in another order: ~1e-6)
+PART_REL_TOL = 1e-4
+# 16b: qwen2-7b at full width, one block; over 8 ranks a rank holds 3.5 of
+# its 28 query heads and half of one of its 4 key/value heads
+PART_FULL_GRID = ((1, 8), ("data", "model"))
+PART_FULL_ARCH = "qwen2_7b"
+PART_FULL_PREFILL = (2, 512)            # float32 prefill: B x tokens
+
+
+def part_heads_smoke(mesh) -> dict:
+    """16a on a rank of 13e's (data 1, model 4) ranks: each case's prefill
+    in the default and FSDP layouts and one client step
+    (``client_deltas_sharded``, K = 1) on the rank's shards, against the
+    one-process ``make_prefill_step`` and ``client_delta`` this rank runs
+    on its device from the same weights.  The kernels' launch counts are
+    set to 0 before and summed over the ranks after."""
+    dev = mesh.device
+    for c in kernel_counts():
+        c.n = 0
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(safl_cfg(MAIN_SKETCH), local_steps=1)
+    eta = safl_module._f32(cfg.client_lr)
+    out = {}
+    for name, arch, over in PART_SMOKE_CASES:
+        model = dataclasses.replace(get_config(arch, smoke=True), **over)
+        params = init_params(model, torch.Generator().manual_seed(0), device=dev)
+        batch = zoo_batch(model, PART_SMOKE_B, PART_SMOKE_S, dev, model.dtype)
+        bspecs = mesh_train.infer_batch_pspecs(batch, mesh_train.data_axes_of(mesh), mesh)
+        want = mesh_train.make_prefill_step(model)(params, batch)
+        cut = local_shard(mesh, {"l": want}, {"l": (bspecs["tokens"][0], "model")})["l"]
+        res = {}
+        for fsdp in (False, True):
+            step = mesh_train.make_prefill_step(model, mesh, fsdp=fsdp, batch=PART_SMOKE_B)
+            blk = step(local_shard(mesh, params, step.par.pspecs),
+                       local_shard(mesh, batch, bspecs))
+            err, n = outside_tol(blk, cut)
+            every = _every_rank(mesh, [err, n, float(blk.shape == cut.shape)])
+            res["prefill " + ("fsdp" if fsdp else "default")] = (
+                max(r[0] for r in every), int(sum(r[1] for r in every)),
+                all(r[2] == 1.0 for r in every))
+        delta, loss = safl_module.client_delta(
+            cfg, lambda p, b: loss_fn(model, p, b), params,
+            {k: v[None] for k, v in batch.items()}, eta)
+        _, pspecs = mesh_train._mesh_pspecs(model, "cross_device")
+        deltas, losses = mesh_train.client_deltas_sharded(
+            model, cfg, mesh, "cross_device", local_shard(mesh, params, pspecs),
+            {k: v[None, None] for k, v in batch.items()}, eta, pspecs)
+        ref = local_shard(mesh, delta, pspecs)
+        errs = [outside_tol(deltas[k][0], ref[k]) for k in pspecs]
+        top = max(float(v.abs().max()) for v in ref.values())
+        every = _every_rank(mesh, [max(e for e, _ in errs), sum(n for _, n in errs), top])
+        worst = max(r[0] for r in every)
+        res["client step"] = (worst, int(sum(r[1] for r in every)),
+                              worst <= PART_REL_TOL * max(r[2] for r in every)
+                              and abs(float(losses[0]) - float(loss))
+                              <= 1e-5 * abs(float(loss)))
+        out[name] = res
+    launches = sum(c.n for c in kernel_counts())
+    return {"cases": out, "seconds": time.perf_counter() - t0,
+            "launches": [int(r[0]) for r in _every_rank(mesh, [launches])]}
+
+
+def part_full_batch(model: ModelConfig, device) -> dict:
+    gen = torch.Generator(device=device).manual_seed(16)
+    return {"tokens": torch.randint(0, model.vocab_size, PART_FULL_PREFILL,
+                                    generator=gen, device=device)}
+
+
+def part_full_model32() -> ModelConfig:
+    return dataclasses.replace(one_block(get_config(PART_FULL_ARCH)), dtype=torch.float32)
+
+
+def part_heads_full_rank(mesh, ref_dir: str) -> dict:
+    """16b on a rank of (data 1, model 8): the float32 prefill on the
+    rank's blocks (drawn leaf by leaf), once to warm up and once timed with
+    its collectives, its (B, V_loc) block against the one-process logits
+    (``ref_dir/logits.pt``); then 13e's bf16 client step
+    (``mesh_step_rank``, its references under ``ref_dir/<arch>``).  The
+    kernels' launch counts are set to 0 before and summed after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    for c in kernel_counts():
+        c.n = 0
+    model = part_full_model32()
+    step = mesh_train.make_prefill_step(model, mesh, fsdp=False, batch=PART_FULL_PREFILL[0])
+    lp = shard_init(mesh, model, step.par.pspecs, dev)
+    batch = part_full_batch(model, dev)
+    rows = local_shard(mesh, batch, mesh_train.infer_batch_pspecs(
+        batch, mesh_train.data_axes_of(mesh), mesh))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = storage_bytes(lp, rows)
+    step(lp, rows)
+    clock = CollectiveClock(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with clock:
+        blk = step(lp, rows)
+        torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    want = torch.load(os.path.join(ref_dir, "logits.pt"))
+    cut = local_shard(mesh, {"l": want}, {"l": (None, "model")})["l"].to(dev)
+    err, n = outside_tol(blk, cut)
+    every = _every_rank(mesh, [err, n, peak_bytes / 2**30])
+    del lp, rows, blk
+    torch.cuda.empty_cache()
+    out = {"prefill": {"ms": ms, "collectives": (clock.calls, clock.seconds * 1e3),
+                       "max_abs_err": max(r[0] for r in every),
+                       "outside": int(sum(r[1] for r in every)),
+                       "peaks": [r[2] for r in every], "argument_bytes": args,
+                       "peak_bytes": peak_bytes},
+           "step": mesh_step_rank(mesh, PART_FULL_ARCH,
+                                  os.path.join(ref_dir, PART_FULL_ARCH))}
+    launches = sum(c.n for c in kernel_counts())
+    out["launches"] = [int(r[0]) for r in _every_rank(mesh, [launches])]
+    return out
+
+
+def part_full_references(ref_dir: str) -> dict:
+    """16b's one-process references on the card: the float32 prefill's
+    logits (saved as ``ref_dir/logits.pt``) and 13e's bf16 client step
+    (``mesh_step_reference``), after checking that every leaf divides
+    over ``PART_FULL_GRID``."""
+    layout = Mesh(*PART_FULL_GRID)
+    model = part_full_model32()
+    pspecs = mesh_train._mesh_pspecs(model, "cross_device")[1]
+    for k, shape in param_shapes(model).items():     # raises where a dim does not divide
+        sharding._block(layout, shape, pspecs[k], 0)
+    params = init_params(model, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    batch = part_full_batch(model, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = mesh_train.make_prefill_step(model)(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    torch.save(logits.cpu(), os.path.join(ref_dir, "logits.pt"))
+    del params, logits
+    torch.cuda.empty_cache()
+    ref = mesh_step_reference(PART_FULL_ARCH, os.path.join(ref_dir, PART_FULL_ARCH))
+    ref["prefill_ms"] = prefill_ms
+    return ref
+
+
+def phase_part_heads(smoke: dict, dry: dict) -> None:
+    """Phase 16: (a) 16a's report (run inside phase 13's card ranks,
+    ``part_heads_smoke``); (b) qwen2-7b at full width, one block, on
+    (data 1, model 8), eight ranks sharing the card through gloo, against
+    the one-process steps; (c) the dry run of (b)'s two steps (run on the
+    host with 15b's) against the card rank's argument bytes and peak; (d)
+    the kernels' launches on this path."""
+    grid = dict(zip(MESH_STEP_GRID[1], MESH_STEP_GRID[0]))
+    print(f"== phase 16a: SMOKE archs whose heads {grid} splits, prefill (default, "
+          f"FSDP) and one client step against one process on the card ==")
+    for name, res in smoke["cases"].items():
+        print(f"{name}: " + "; ".join(f"{k} max abs diff {v[0]:.3e}, outside {v[1]}"
+                                     for k, v in res.items()))
+        for k, v in res.items():
+            check(v[1] == 0 and v[2], f"16a {name} {k}: differs from the one-process step")
+    print(f"16a: {smoke['seconds']:.1f} s on rank 0 (inside phase 13's card ranks)")
+    world = math.prod(PART_FULL_GRID[0])
+    where = ("sharing the card (gloo)" if choose_backend(world, "cuda") == "gloo"
+             else "a card each (NCCL)")
+    fgrid = dict(zip(PART_FULL_GRID[1], PART_FULL_GRID[0]))
+    cfg = get_config(PART_FULL_ARCH)
+    print(f"== phase 16b: {PART_FULL_ARCH} at full width ({cfg.num_heads} query, "
+          f"{cfg.num_kv_heads} key/value heads), one block, on {fgrid}, {world} ranks "
+          f"{where} ==")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="part_heads_") as tmp:
+        ref = part_full_references(tmp)
+        t1 = time.perf_counter()
+        got = spawn(part_heads_full_rank, *PART_FULL_GRID, tmp, device="cuda", timeout=600)
+    t2 = time.perf_counter()
+    pf = got["prefill"]
+    calls, coll_ms = pf["collectives"]
+    B, S = PART_FULL_PREFILL
+    print(f"{PART_FULL_ARCH} float32 prefill, {B} x {S} tokens: {pf['ms']:.1f} ms on rank 0 "
+          f"after a warm-up ({calls} collective calls, {coll_ms:.1f} ms inside them; one "
+          f"process {ref['prefill_ms']:.1f} ms with its first call), logits max abs diff "
+          f"{pf['max_abs_err']:.3e}, outside phase 3's tolerance {pf['outside']}; peaks "
+          f"by rank {', '.join(f'{p:.2f}' for p in pf['peaks'])} GiB")
+    check(pf["outside"] == 0, f"16b: the sharded prefill differs from the one-process logits")
+    check_client_step(PART_FULL_ARCH, ref, got["step"])
+    print(f"16b: references {t1 - t0:.1f} s, {world} ranks {t2 - t1:.1f} s")
+    print("== phase 16c: the dry run of 16b (rank 0, meta shards, a fake process group, "
+          "on the host) against the card ==")
+    for name, m in (("16b prefill", pf), ("16b client", got["step"])):
+        r = dry[name]
+        check(r["status"] == "ok", f"dry run {name}: {r['status']}")
+        mem, c = r["counts"]["memory"], r["counts"]
+        ratio = mem["peak_bytes"] / m["peak_bytes"]
+        print(f"dry run {name}: {r['seconds']:.1f} s to trace; rank 0 arguments "
+              f"{mem['argument_bytes']:,} B (the card rank's live shards "
+              f"{m['argument_bytes']:,} B); peak {mem['peak_bytes'] / 2**30:.2f} GiB "
+              f"against the card's {m['peak_bytes'] / 2**30:.2f} GiB (ratio {ratio:.3f}); "
+              f"{c['flops']:.4e} FLOPs, collectives {c['collective_calls']}")
+        check(mem["argument_bytes"] == m["argument_bytes"],
+              f"dry run {name}: argument bytes {mem['argument_bytes']} against "
+              f"{m['argument_bytes']}")
+    launches = sum(smoke["launches"]) + sum(got["launches"])
+    print(f"== phase 16d: the part-head path launched {launches} of the TPU kernels' "
+          f"counterparts (16a by rank {smoke['launches']}, 16b {got['launches']}; it "
+          f"reaches none, as in the reference) ==")
+    print(f"phase 16 {time.perf_counter() - t0:.1f} s on the host beside 16a")
 
 
 def print_cs_launches(name: str, n: dict[str, int]) -> None:
@@ -4234,7 +4497,7 @@ def main() -> int:
 
 
 def run_phases(laps: Laps, dry: subprocess.Popen, dry_out: str) -> int:
-    """Phases 2 to 15 (the dry run ``dry`` started in the background) and
+    """Phases 2 to 16 (the dry run ``dry`` started in the background) and
     the closing lines."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     entries = phase_kernels(gen)
@@ -4309,7 +4572,7 @@ def run_phases(laps: Laps, dry: subprocess.Popen, dry_out: str) -> int:
     laps.lap("11")
     torch.cuda.empty_cache()
     t12 = time.perf_counter()
-    counts = (cs.LAUNCHES, fw.LAUNCHES, *gs.LAUNCHES.values())
+    counts = kernel_counts()
     for c in counts:
         c.n = 0
     phase_serve_full()
@@ -4327,8 +4590,11 @@ def run_phases(laps: Laps, dry: subprocess.Popen, dry_out: str) -> int:
     torch.cuda.empty_cache()
     phase_serve_mesh()
     laps.lap("14")
-    report_dryrun(dry, dry_out, measured)
+    dry_got = report_dryrun(dry, dry_out, measured)
     laps.lap("15")
+    torch.cuda.empty_cache()
+    phase_part_heads(measured["part_smoke"], dry_got)
+    laps.lap("16")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")

@@ -13,8 +13,8 @@ port's specs, and runs the port's own step on them once under
 ``launch.op_costs.OpCosts``: the SAFL/FedOPT mesh round for ``train``,
 the sharded prefill or decode step for ``prefill``/``decode``.  Nothing is
 allocated.  A configuration the port cannot cut (a dimension its axes do
-not divide, a rank holding part of an attention head) returns the error
-as its status and counts as a failure, as the reference counts one.
+not divide) returns the error as its status and counts as a failure, as
+the reference counts one.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
         --shape train_4k [--multi-pod] [--step safl|fedopt] [--json out.json]
@@ -59,7 +59,6 @@ from repro_torch.launch.train import (_mesh_pspecs, _spec_entry, batch_pspecs,
                                       opt_pspecs, serve_specs)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import count_params_analytic, param_shapes
-from repro_torch.models.parallel import check_heads
 from repro_torch.models.sharding import local_shard, param_pspecs
 
 MEGA_PARAMS = 60e9  # configs above this use bf16 server moments
@@ -171,28 +170,6 @@ def rank_inputs(model_cfg: ModelConfig, mesh, inputs: dict, *, kind: str,
     raise ValueError(f"unknown step kind {kind!r}")
 
 
-def check_cut(model_cfg: ModelConfig, mesh, inputs: dict, *, kind: str,
-              topology: str = "cross_device", safl: Optional[SAFLConfig] = None,
-              serve_layout: str = "default", fsdp: Optional[bool] = None,
-              max_seq: Optional[int] = None) -> dict:
-    """Whether the port can cut a step's arguments for ``mesh`` (a layout
-    with its ``rank`` set will do; no process group is needed), before
-    running it: ``rank_inputs`` (an uneven cut raises), then, for a train or
-    prefill step, ``models.parallel.check_heads`` on every attention
-    block's q and k/v columns on the rank (a part head raises), as the
-    step would.  Returns the rank's ``rank_inputs``."""
-    a = rank_inputs(model_cfg, mesh, inputs, kind=kind, topology=topology,
-                    safl=safl, serve_layout=serve_layout, fsdp=fsdp,
-                    max_seq=max_seq)
-    if kind != "decode":
-        n = mesh.shape["model"]
-        for path, w in a["params"].items():
-            if path.endswith("attn/wq") and path[:-2] + "wk" in a["params"]:
-                check_heads(model_cfg, w.shape[-1],
-                            a["params"][path[:-2] + "wk"].shape[-1], n)
-    return a
-
-
 def dry_run(model_cfg: ModelConfig, sizes, axes, inputs: dict, *, kind: str,
             topology: str = "cross_device", safl: Optional[SAFLConfig] = None,
             step_kind: str = "safl", serve_layout: str = "default",
@@ -211,15 +188,15 @@ def dry_run(model_cfg: ModelConfig, sizes, axes, inputs: dict, *, kind: str,
 
     Returns ``{"counts": OpCosts.counts(), "shards": the shapes of the
     rank's ``rank_inputs``, "seconds": the step's wall time}``; the port's
-    own exceptions (an uneven cut, a part head) propagate."""
+    own exceptions (an uneven cut) propagate."""
     if fsdp is None:
         fsdp = topology == "cross_silo"
     safl = safl or build_safl_cfg(model_cfg)
     with fake_world(math.prod(sizes), rank):
         mesh = make_mesh(sizes, axes, device="meta")
-        a = check_cut(model_cfg, mesh, inputs, kind=kind, topology=topology,
-                      safl=safl, serve_layout=serve_layout, fsdp=fsdp,
-                      max_seq=max_seq)
+        a = rank_inputs(model_cfg, mesh, inputs, kind=kind, topology=topology,
+                        safl=safl, serve_layout=serve_layout, fsdp=fsdp,
+                        max_seq=max_seq)
         if kind == "train":
             G = next(iter(inputs["batch"].values())).shape[0]
             make = make_fedopt_train_step if step_kind == "fedopt" else make_safl_train_step
@@ -268,7 +245,7 @@ def lower_one(arch: str, shape: str, *, multi_pod: bool, step_kind: str,
               rank: int = 0, long_scans: bool = False):
     """Returns (RooflineReport | None, status string).  Without
     ``long_scans``, a train or prefill step through Mamba layers is cut
-    (``check_cut``) but not traced: its recurrence is a Python loop over
+    (``rank_inputs``) but not traced: its recurrence is a Python loop over
     every token of every layer, minutes on ``meta``."""
     cfg = get_config(arch)
     ok, why = shape_eligible(cfg, shape)
@@ -291,8 +268,8 @@ def lower_one(arch: str, shape: str, *, multi_pod: bool, step_kind: str,
     try:
         if scan and not long_scans:
             layout0 = Mesh(layout.sizes, layout.axis_names, rank=rank)
-            check_cut(cfg, layout0, inputs, kind=sh.kind, topology=topology, safl=safl,
-                      serve_layout=serve_layout, max_seq=sh.seq_len)
+            rank_inputs(cfg, layout0, inputs, kind=sh.kind, topology=topology, safl=safl,
+                        serve_layout=serve_layout, max_seq=sh.seq_len)
             steps = sh.seq_len * sum(m == "mamba" for m, _ in cfg.layer_kinds())
             return None, (f"SKIP(cuts; the Mamba recurrence's {steps:,} Python "
                           f"steps not traced: --long-scans)")

@@ -38,7 +38,11 @@ wherever a tensor that is the same on every rank of the group enters
 rank-specific work; ``_Gather``: the backward takes the rank's block;
 FSDP's gather: the backward reduce-scatters over ``data``), so a rank's
 gradient of a replicated tensor is the whole one and of its blocks its
-own.  The loss (``loss_fn``) is a vocab-parallel cross-entropy on the
+own.  Where a model axis splits heads (a rank's q or k/v columns are part
+of a head), full-sequence attention gathers whole heads (``head_plan``):
+each rank reads other heads of the gathered tensor, so that gather's
+backward is a reduce-scatter, as FSDP's is.  The loss (``loss_fn``) is a
+vocab-parallel cross-entropy on the
 rank's (B, S_chunk, V_loc) logits, its row maximum, exponential sum and
 gold logit summed over the group.  Decode attention runs over the cache's
 own shards: the new token's q (and k, v) are gathered over the heads (B x
@@ -56,6 +60,7 @@ gathers the ``(B, V)`` logits, so the greedy argmax is the one-process
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import math
 from typing import Any, Mapping, Optional, Sequence
@@ -516,20 +521,110 @@ def mla_attention_decode(par: Par, p: Blocks, x: torch.Tensor, pos: torch.Tensor
 # full-sequence attention (prefill and the encoder): the rank's heads
 # ---------------------------------------------------------------------------
 
-def check_heads(cfg, q_cols: int, k_cols: int, n: int) -> None:
-    """Raise where a rank's q or k/v columns (``q_cols``, ``k_cols`` of a
-    cut over ``n`` ranks) are not whole heads: GSPMD would reshard them,
-    the port computes whole heads only."""
-    if q_cols % cfg.hd or k_cols % cfg.hd:
-        raise ValueError(f"{cfg.name}: {cfg.num_heads} query and {cfg.num_kv_heads} "
-                         f"key/value heads do not split over {n} ranks")
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """The whole heads one rank attends over in a full-sequence attention
+    (``head_plan``): query heads [q0, q1), the key/value heads ``kv`` it
+    reads (global indices, in order), their grouping ``num_kv`` for
+    ``layers._attend_chunked``, and which of q and k/v are gathered whole
+    over the group first.  ``starts[j]`` is member j's first query head
+    when q is gathered (its heads end at ``starts[j + 1]``)."""
+    q0: int
+    q1: int
+    kv: tuple[int, ...]
+    num_kv: int
+    gather_q: bool = False
+    gather_kv: bool = False
+    starts: tuple[int, ...] = ()
+
+    @property
+    def whole(self) -> bool:
+        """The rank's own columns are whole heads: no collective added."""
+        return not (self.gather_q or self.gather_kv)
+
+
+def head_plan(cfg, q_cols: int, k_cols: int, n: int, r: int) -> HeadPlan:
+    """The heads rank ``r`` of ``n`` attends over, its q and k/v columns
+    being ``q_cols`` and ``k_cols`` wide (the column-parallel cut of
+    ``wq``/``wk``; every column under the flat layout).
+
+    * Whole heads: the rank's own heads, nothing gathered.
+    * Key/value heads cut, query heads whole: k and v gathered; the rank
+      keeps the kv heads its query heads read (query head i reads kv head
+      i // (H / Hkv), the reference's ``jnp.repeat``).
+    * Query heads cut (then so are the kv heads): q, k and v gathered; the
+      rank takes heads [r H // n, (r + 1) H // n), so no head is computed
+      twice and none is left out.
+
+    Where the kv heads a rank reads are not an even grouping of its query
+    heads, ``kv`` repeats one per query head (``num_kv`` = its heads)."""
+    H, Hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    if q_cols % hd == 0 and k_cols % hd == 0:
+        hq, hk = q_cols // hd, k_cols // hd
+        q0 = 0 if hq == H else r * hq
+        k0 = 0 if hk == Hk else r * hk
+        return HeadPlan(q0, q0 + hq, tuple(range(k0, k0 + hk)), hk)
+    gather_q = q_cols % hd != 0
+    starts = tuple(j * H // n for j in range(n + 1)) if gather_q else ()
+    q0, q1 = (starts[r], starts[r + 1]) if gather_q else (r * (q_cols // hd),
+                                                          (r + 1) * (q_cols // hd))
+    reads = [i // (H // Hk) for i in range(q0, q1)]
+    kv = sorted(set(reads))
+    if kv and all(reads.count(k) * len(kv) == len(reads) for k in kv):
+        return HeadPlan(q0, q1, tuple(kv), len(kv), gather_q, True, starts)
+    return HeadPlan(q0, q1, tuple(reads), max(len(reads), 1), gather_q, True, starts)
+
+
+def _gather_heads(par: Par, plan: HeadPlan, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> tuple:
+    """q (B, S, Hq_loc, hd) and k, v (B, T, len(kv), hd) of the rank's
+    heads from its columns: the columns the plan gathers go in ONE
+    all_gather over the group (flattened, laid end to end), whose
+    backward is a reduce-scatter (each member reads its own heads of
+    them), then each member's block is put back in place."""
+    B, S = q.shape[:2]
+    hd = par.cfg.hd
+    parts = ([q] if plan.gather_q else []) + [k, v]
+    every = _all_gather(torch.cat([t.reshape(-1) for t in parts])[None],
+                        par.mesh, par.tp, 0, shards=True)
+    whole, off = [], 0
+    for t in parts:
+        blk = every[:, off:off + t.numel()].reshape(par.n, *t.shape)
+        whole.append(blk.movedim(0, -2).reshape(*t.shape[:-1], par.n * t.shape[-1]))
+        off += t.numel()
+    if plan.gather_q:
+        q = whole.pop(0)[..., plan.q0 * hd:plan.q1 * hd]
+    idx = torch.tensor(plan.kv, dtype=torch.int64, device=q.device)
+    k, v = (t.reshape(*t.shape[:2], -1, hd).index_select(2, idx) for t in whole)
+    return q.reshape(B, S, plan.q1 - plan.q0, hd), k, v
+
+
+def _wo_cols(par: Par, plan: HeadPlan, out: torch.Tensor) -> torch.Tensor:
+    """(B, S, heads of the rank x hd) -> the rank's H hd / n columns, the
+    cut ``wo``'s rows have: every member's heads padded to the most a
+    member has, one all_gather over the group (a reduce-scatter in the
+    backward), and the rank's columns picked out of it."""
+    hd, n, r = par.cfg.hd, par.n, par.r
+    st = plan.starts
+    most = max(st[j + 1] - st[j] for j in range(n)) * hd
+    every = _all_gather(F.pad(out, (0, most - out.shape[-1]))[None],
+                        par.mesh, par.tp, 0, shards=True)       # (n, B, S, most)
+    width = st[n] * hd // n
+    cols = []
+    for c in range(r * width, (r + 1) * width):
+        j = bisect.bisect_right(st, c // hd) - 1      # the member that computed head c // hd
+        cols.append(j * most + c - st[j] * hd)
+    flat = every.movedim(0, -2).reshape(*out.shape[:-1], n * most)
+    return flat.index_select(-1, torch.tensor(cols, dtype=torch.int64, device=out.device))
 
 
 def attention(par: Par, p: Blocks, x: torch.Tensor, positions: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``layers.attention`` over the heads the rank's q/k/v columns give
-    it (all of them under the flat layout), then the row-parallel ``wo``."""
+    """``layers.attention`` over the heads ``head_plan`` gives the rank
+    (its own, all of them under the flat layout, or, where its columns
+    are not whole heads, whole heads gathered: rotary on whole heads),
+    then the row-parallel ``wo`` on the rank's rows."""
     cfg = par.cfg
     B, S, _ = x.shape
     hd = cfg.hd
@@ -540,19 +635,24 @@ def attention(par: Par, p: Blocks, x: torch.Tensor, positions: torch.Tensor, *,
         k, v = _proj(par, enc_out, [p["wk"], p["wv"]])
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    check_heads(cfg, q.shape[-1], k.shape[-1], par.n)
-    Hq, Hkv = q.shape[-1] // hd, k.shape[-1] // hd
+    plan = head_plan(cfg, q.shape[-1], k.shape[-1], par.n, par.r)
     T = k.shape[1]
-    q = q.reshape(B, S, Hq, hd)
-    k = k.reshape(B, T, Hkv, hd)
-    v = v.reshape(B, T, Hkv, hd)
+    if plan.whole:
+        q = q.reshape(B, S, -1, hd)
+        k = k.reshape(B, T, -1, hd)
+        v = v.reshape(B, T, -1, hd)
+    else:
+        q, k, v = _gather_heads(par, plan, q, k, v)
     if cfg.pos_kind in ("rope", "mrope") and enc_out is None:
         cos, sin = L.rope_cos_sin(cfg, positions, hd)
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
     out = L._attend_chunked(q, k, v, causal=causal and enc_out is None,
-                            window=window, q_offset=0, num_kv=Hkv)
-    return _rows(par, out.reshape(B, S, Hq * hd), p["wo"])
+                            window=window, q_offset=0, num_kv=plan.num_kv)
+    out = out.reshape(B, S, (plan.q1 - plan.q0) * hd)
+    if plan.gather_q:
+        out = _wo_cols(par, plan, out)
+    return _rows(par, out, p["wo"])
 
 
 def mla_attention(par: Par, p: Blocks, x: torch.Tensor,

@@ -11,19 +11,23 @@ spec arithmetic, on the CPU.
   the train batch, and the decode cache in both serve layouts.  Where the
   reference's dims do not divide, the port refuses (``UNEVEN``).
 * Status: the ok/SKIP status of every arch x shape equals the
-  reference's ``shape_eligible``; the configurations the port refuses
-  (``check_cut``: a part head in a train or prefill step, ``PART_HEADS``)
-  are listed with their reasons.
+  reference's ``shape_eligible``, and the port cuts every one the
+  reference lowers (``rank_inputs``), the train and prefill steps of the
+  eight archs whose heads a 16-way model axis splits too (``PART_HEADS``:
+  their attention gathers whole heads, ``models.parallel.head_plan``).
 * The mini dry run (the counterpart of tests/test_sharding_and_dryrun.py's
   ``test_mini_dryrun_8_devices``), in a subprocess so the fake default
   group never reaches the pytest worker: llama3.2-1b SMOKE's train step
   (K = 2, the uplink through B1's meta route) and decode step under a fake
-  group of 8.  The reference's (2, 4) mesh cuts the SMOKE config's 2 KV
-  heads over 4 ranks: the port refuses its train step there, so the train
-  step runs on (4, 2) and the decode step on (2, 4).  Rank 0's argument
-  bytes equal a real CPU ``local_shard``'s ``nbytes`` exactly, and the 8
-  ranks' matmul FLOPs sum to the one-process client steps' of the same 4
-  clients' batches.
+  group of 8.  The train step runs on the reference's (2, 4) mesh, which
+  cuts the SMOKE config's 2 KV heads over 4 ranks, and on (4, 2); the
+  decode step on (2, 4).  Rank 0's argument bytes equal a real CPU
+  ``local_shard``'s ``nbytes`` exactly, and the 8 ranks' matmul FLOPs on
+  (4, 2) sum to the one-process client steps' of the same 4 clients'
+  batches.  And a part-head step: llama3.2-1b SMOKE's client step on
+  (data 1, model 4), its dry run's collective calls, bytes and FLOPs
+  those of the live step on four gloo CPU ranks (``spawn`` from the same
+  subprocess; ``test_torch_part_heads.live_client_counts``).
 * The meta route of ``kernels/ops.py``: B1-B4 on ``meta`` return the
   kernel's output shape and record one launch and chip_smoke's bytes.
 """
@@ -31,7 +35,6 @@ spec arithmetic, on the CPU.
 import json
 import os
 import pathlib
-import re
 import subprocess
 import sys
 import types
@@ -68,9 +71,9 @@ MESHES = {"16x16": False, "2x16x16": True}
 UNEVEN = {("jamba_1_5_large_398b", "flat"): "dim 16 of (9, 16, 8192, 24576)",
           ("qwen1_5_4b", "flat"): "dim 151936 of (151936, 2560)",
           ("dbrx_132b", "flat"): "dim 16 of (40, 16, 6144, 10752)"}
-# the archs whose train and prefill steps the port refuses on a 16-way model
-# axis: a rank would hold part of a query or key/value head (GSPMD reshards;
-# the port computes whole heads only, ROADMAP C)
+# the archs whose heads a 16-way model axis splits: a rank's q or k/v
+# columns are part heads, and its train and prefill steps' attention gathers
+# whole heads (GSPMD reshards)
 PART_HEADS = {"whisper_large_v3": "20 query and 20 key/value",
               "jamba_1_5_large_398b": "64 query and 8 key/value",
               "qwen2_vl_7b": "28 query and 4 key/value",
@@ -188,8 +191,8 @@ def test_shard_shapes_match_reference_spec_arithmetic(mesh_name):
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_status_matches_reference(mesh_name):
     """Every arch x shape: SKIP exactly where the reference skips; the
-    port's cut (``check_cut``, what ``lower_one`` runs before the step) ok
-    everywhere else but the listed part-head refusals."""
+    port's cut (``rank_inputs``, what ``lower_one`` runs before the step) ok
+    everywhere else, the part-head archs' train and prefill steps too."""
     lay = make_production_mesh(multi_pod=MESHES[mesh_name])
     rank0 = Mesh(lay.sizes, lay.axis_names, rank=0)
     for arch in ASSIGNED:
@@ -202,17 +205,13 @@ def test_status_matches_reference(mesh_name):
                 continue
             inputs = (input_specs(cfg, shape, num_clients=num_clients_of(lay, topo))
                       if sh.kind == "train" else input_specs(cfg, shape))
-            try:
-                D.check_cut(cfg, rank0, inputs, kind=sh.kind, topology=topo,
-                            max_seq=sh.seq_len)
-                status = "ok"
-            except ValueError as e:
-                status = str(e)
+            D.rank_inputs(cfg, rank0, inputs, kind=sh.kind, topology=topo,
+                          max_seq=sh.seq_len)               # an uneven cut raises
             if sh.kind != "decode" and arch in PART_HEADS:
-                assert PART_HEADS[arch] in status and "do not split over 16 ranks" \
-                    in status, (arch, shape, status)
-            else:
-                assert status == "ok", (arch, shape, status)
+                heads = f"{cfg.num_heads} query and {cfg.num_kv_heads} key/value"
+                assert heads == PART_HEADS[arch], arch
+                assert (cfg.num_heads * cfg.hd // lay.shape["model"] % cfg.hd
+                        or cfg.num_kv_heads * cfg.hd // lay.shape["model"] % cfg.hd), arch
 
 
 def test_meta_route_records_launch_and_bytes():
@@ -263,12 +262,9 @@ def _mini_main(out_path: str) -> None:
     axes = ("data", "model")
     out = {}
     meta = lambda s: torch.empty(s, dtype=torch.int32, device="meta")
-    try:
-        D.dry_run(cfg, (2, 4), axes, {"batch": {"tokens": meta((2, 2, 4, 64))}},
-                  kind="train", safl=safl)
-        out["refused_2x4"] = ""
-    except ValueError as e:
-        out["refused_2x4"] = str(e)
+    out["counts_2x4"] = D.dry_run(cfg, (2, 4), axes,
+                                  {"batch": {"tokens": meta((2, 2, 4, 64))}},
+                                  kind="train", safl=safl)["counts"]
     out["initialized_after"] = torch.distributed.is_initialized()
     runs = [D.dry_run(cfg, (4, 2), axes, {"batch": {"tokens": meta((4, 2, 4, 64))}},
                       kind="train", safl=safl, rank=r) for r in range(8)]
@@ -307,6 +303,14 @@ def _mini_main(out_path: str) -> None:
                      "pos": meta(())}, kind="decode")
     out["decode"] = dec["counts"]
     out["decode_shards"] = dec["shards"]["cache"]
+    # a part-head step, dry and live: the client step on (data 1, model 4)
+    from repro_torch.launch.mesh import spawn
+    from test_torch_part_heads import live_client_counts
+    one = D.dry_run(cfg, (1, 4), axes, {"batch": {"tokens": meta((1, 1, 4, 16))}},
+                    kind="client")["counts"]
+    live = spawn(live_client_counts, (1, 4), axes, "llama3_2_1b", {},
+                 tokens[:1, :1, :, :16].numpy(), device="cpu", timeout=300)
+    out["part_heads"] = {"dry": one, "live": live}
     with open(out_path, "w") as f:
         json.dump(out, f)
 
@@ -325,8 +329,10 @@ def mini(tmp_path_factory):
 
 
 def test_mini_dryrun_train_and_decode_run_to_their_end(mini):
-    assert re.search(r"4 query and 2 key/value heads do not split over 4 ranks",
-                     mini["refused_2x4"]), mini["refused_2x4"]
+    # (2, 4) cuts the 2 KV heads: one gather of k and v an attention layer,
+    # a reduce-scatter in the backward
+    c24 = mini["counts_2x4"]["collective_calls"]
+    assert c24["all_gather"] > 0 and c24["reduce_scatter"] > 0, c24
     assert mini["initialized_after"] is False       # the fake group was destroyed
     c = mini["counts0"]
     # one payload all_reduce (+ its weight) and the losses' all_gather a round,
@@ -350,3 +356,16 @@ def test_mini_dryrun_flops_sum_to_the_one_process_step(mini):
     the server step do no matmul) sum to the one-process client steps'."""
     assert sum(mini["flops"]) == mini["one_process_flops"], (
         mini["flops"], mini["one_process_flops"], mini["one_process_by_op"])
+
+
+def test_mini_dryrun_part_head_step_counts_the_live_steps(mini):
+    """The dry run of a part-head client step counts the gathers (and every
+    other collective), their bytes and the FLOPs of the same step run live
+    on four gloo ranks."""
+    dry, live = mini["part_heads"]["dry"], mini["part_heads"]["live"]
+    # llama3.2-1b SMOKE: 2 layers, each kv gather a reduce-scatter backward
+    assert dry["collective_calls"]["all_gather"] == 2, dry["collective_calls"]
+    assert dry["collective_calls"]["reduce_scatter"] == 2, dry["collective_calls"]
+    assert dry["collective_calls"] == live["collective_calls"]
+    assert dry["collective_bytes"] == live["collective_bytes"]
+    assert dry["flops"] == live["flops"] > 0
