@@ -199,6 +199,24 @@ Phases (any failed check or exception exits nonzero):
    0's ms and collective calls, every rank's peak; (c) the dry run of
    both (from 15b's host process): argument bytes exactly the card rank's
    live shards, the peaks' ratio printed.
+17. rematerialization (``models.model.remat_block``, the reference's
+   ``jax.checkpoint`` around each block; no TPU kernel on this path, the
+   launch counts set to 0 before and printed after): (a) llama3.2-1b at
+   its published width and all 16 blocks, bf16, one client's local step
+   (``client_delta``, K = 1) of one 4,096-token sequence with each block
+   recomputed in the backward: the loss, the step's ms after a warm-up
+   and its peak, and the gradient's peak alone; (b) the same step at
+   1,024 tokens with and without remat: the loss bit for bit, the delta's
+   cosine at least ``REMAT_MIN_COS`` and its largest gap, both peaks and
+   the time ratio, timed in turns; (c) the dry run of (a) on ``meta``
+   tensors (from 15b's host process, no process group) against the card's
+   peaks within ``DRYRUN_PEAK_FACTOR``, and its figures without remat,
+   which no phase runs at 4,096 tokens.
+
+Every training loss (phases 3 to 11 and 13 to 17) runs the reference's
+default, each block recomputed in the backward (``remat=True``); prefill,
+decode and the Fig. 5 HVP (``torch.func``, which refuses a checkpointed
+block) run without it.
 
 Phases 4, 5, 6, 8b and 11b end with a breakdown of one round's time by step,
 and check each round's uplink bits (per-client payload times the
@@ -224,6 +242,7 @@ without one.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -2163,7 +2182,7 @@ def phase_intrinsic_dim() -> None:
     hv, v = {}, None
     for dev in ("cpu", "cuda"):
         params = init_params(smoke, torch.Generator().manual_seed(0), device=dev)
-        mv, d = make_hvp(lambda p, b: loss_fn(smoke, p, b), params,
+        mv, d = make_hvp(lambda p, b: loss_fn(smoke, p, b, remat=False), params,
                          {k: t.to(dev) for k, t in sbatch.items()})
         if v is None:
             v = prng.normal(prng.key(1), (d,), "cpu")
@@ -2180,7 +2199,8 @@ def phase_intrinsic_dim() -> None:
     params = init_params(model, torch.Generator().manual_seed(0), device="cuda")
     batch = BigramLMData(full_data(min(model.vocab_size, 4096))).client_batch(
         0, 16, seed=0, device="cuda")
-    loss = lambda p, b: loss_fn(model, p, b)
+    # torch.func refuses a checkpointed block: the HVP keeps its activations
+    loss = lambda p, b: loss_fn(model, p, b, remat=False)
     mv, d = make_hvp(loss, params, batch)
     v = prng.normal(prng.key(2), (d,), "cuda")
     mv(v)
@@ -2310,12 +2330,15 @@ def zoo_batch(model: ModelConfig, B: int, S: int, device, dtype) -> dict:
     return batch
 
 
-def grad_step(model: ModelConfig, params: dict, batch: dict):
-    """Loss and gradient of one local step: (loss, grads, ms)."""
+def grad_step(model: ModelConfig, params: dict, batch: dict, recorder=None):
+    """Loss and gradient of one local step: (loss, grads, ms).  A
+    ``RoutingRecorder`` records the forward's routing only, not the
+    backward's recompute of each block."""
     leaves = [p.requires_grad_(True) for p in params.values()]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loss = loss_fn(model, params, batch)
+    with recorder if recorder is not None else contextlib.nullcontext():
+        loss = loss_fn(model, params, batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
@@ -2335,8 +2358,8 @@ def phase_zoo_steps() -> None:
         batch = zoo_batch(model, B, S, "cuda", model.dtype)
         grad_step(model, params, batch)                      # warm-up
         torch.cuda.reset_peak_memory_stats()
-        with RoutingRecorder() as r16:
-            loss16, g16, ms16 = grad_step(model, params, batch)
+        r16 = RoutingRecorder()
+        loss16, g16, ms16 = grad_step(model, params, batch, r16)
         peak16 = peak_gib()
         del params
         torch.cuda.empty_cache()
@@ -2346,8 +2369,8 @@ def phase_zoo_steps() -> None:
         batch32 = {k: v.float() if v.is_floating_point() else v
                    for k, v in batch.items()}
         torch.cuda.reset_peak_memory_stats()
-        with RoutingRecorder() as r32:
-            loss32, g32, ms32 = grad_step(model32, params, batch32)
+        r32 = RoutingRecorder()
+        loss32, g32, ms32 = grad_step(model32, params, batch32, r32)
         peak32 = peak_gib()
         dot = n16 = n32 = 0.0
         worst = (2.0, "")
@@ -4100,12 +4123,13 @@ def storage_bytes(*trees) -> int:
 
 
 def dryrun_host(out_path: str) -> None:
-    """15b, 15c and 16c in a process of their own on the host (no card):
-    the dry run (``launch/dryrun.py``: rank 0's step on ``meta`` shards
-    under a fake process group) of 13b's bert_100m round, 13e's dbrx_132b
-    client step, the client step of ``DRYRUN_STEP_ARCHS`` at 13e's size
-    and 16b's prefill and client step; each one's counts, or the port's
-    refusal, into ``out_path`` (JSON)."""
+    """15b, 15c, 16c and 17c in a process of their own on the host (no
+    card): the dry run (``launch/dryrun.py``: rank 0's step on ``meta``
+    shards under a fake process group) of 13b's bert_100m round, 13e's
+    dbrx_132b client step, the client step of ``DRYRUN_STEP_ARCHS`` at
+    13e's size and 16b's prefill and client step; each one's counts, or the
+    port's refusal, and 17a's one-process step (``remat_dry``) into
+    ``out_path`` (JSON)."""
     from repro_torch.launch import dryrun
     data = mesh_data(bert_100m.CONFIG, True)
     tokens = lambda shape: {"tokens": torch.empty(shape, dtype=torch.int64, device="meta")}
@@ -4119,7 +4143,7 @@ def dryrun_host(out_path: str) -> None:
                tokens(PART_FULL_PREFILL), None),
               ("16b client", step_block(get_config(PART_FULL_ARCH)), PART_FULL_GRID,
                "client", tokens((1, 1, 1, MESH_STEP_TOKENS)), step_cfg)]
-    out = {}
+    out = {"17a": remat_dry()}
     for name, model, (sizes, axes), kind, batch, cfg in cases:
         t0 = time.perf_counter()
         try:
@@ -4437,6 +4461,170 @@ def phase_part_heads(smoke: dict, dry: dict) -> None:
     print(f"phase 16 {time.perf_counter() - t0:.1f} s on the host beside 16a")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: rematerialization, each block recomputed in the backward (A-16)
+# ---------------------------------------------------------------------------
+
+REMAT_MODEL = llama3_2_1b.CONFIG        # published width, all 16 blocks, bf16
+REMAT_TOKENS = 4096                     # 17a: train_4k's sequence, one client
+REMAT_PAIR_TOKENS = 1024                # 17b: with remat against without
+REMAT_MIN_COS = 0.99999                 # 17b: the delta's cosine across the pair
+REMAT_CFG = SAFLConfig(client_lr=0.01, local_steps=1)
+REMAT_TURNS = (False, True, True, False) * 2   # 17b's timed runs, in turns
+
+
+def remat_batch(S: int, device="cuda") -> dict:
+    """One client's one local step of one S-token sequence: (K, B, S) = (1, 1, S)."""
+    if device == "meta":
+        return {"tokens": torch.empty((1, 1, S), dtype=torch.int64, device="meta")}
+    gen = torch.Generator(device=device).manual_seed(7)
+    return {"tokens": torch.randint(0, REMAT_MODEL.vocab_size, (1, 1, S), generator=gen,
+                                    device=device)}
+
+
+def remat_step(params: dict, mb: dict, remat: bool):
+    """``client_delta`` (K = 1) of ``REMAT_MODEL``: (the float32 delta, the loss)."""
+    return safl_module.client_delta(
+        REMAT_CFG, lambda p, b: loss_fn(REMAT_MODEL, p, b, remat=remat), params, mb,
+        safl_module._f32(REMAT_CFG.client_lr))
+
+
+def remat_grad(params: dict, mb: dict, remat: bool):
+    """The step's loss and gradients alone (before the update and the delta)."""
+    leaves = [p.detach().requires_grad_(True) for p in params.values()]
+    loss = loss_fn(REMAT_MODEL, dict(zip(params, leaves)), {"tokens": mb["tokens"][0]},
+                   remat=remat)
+    return torch.autograd.grad(loss, leaves)
+
+
+def remat_dry() -> dict:
+    """17c on the host: ``OpCosts`` of 17a's step and of its gradient alone on
+    ``meta`` tensors (no process group), with and without remat."""
+    from repro_torch.launch.op_costs import OpCosts
+    out = {}
+    for remat in (True, False):
+        for what, fn in (("step", remat_step), ("grad", remat_grad)):
+            params = {k: torch.empty(s, dtype=REMAT_MODEL.dtype, device="meta")
+                      for k, s in param_shapes(REMAT_MODEL).items()}
+            mb = remat_batch(REMAT_TOKENS, "meta")
+            t0 = time.perf_counter()
+            with OpCosts((params, mb)) as oc:
+                oc.set_outputs(fn(params, mb, remat))
+            out[f"{what} {'remat' if remat else 'no remat'}"] = {
+                "counts": oc.counts(), "seconds": time.perf_counter() - t0}
+    return out
+
+
+def timed_peak(fn):
+    """(fn(), its ms between CUDA events, the peak GiB while it ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop), peak_gib()
+
+
+def tree_cosine(a: dict, b: dict) -> float:
+    dot = na = nb = 0.0
+    for k, x in a.items():
+        x, y = x.double(), b[k].double()
+        dot, na, nb = dot + float((x * y).sum()), na + float((x * x).sum()), \
+            nb + float((y * y).sum())
+    return dot / math.sqrt(na * nb)
+
+
+def phase_remat(dry: dict) -> None:
+    """Phase 17: (a) llama3.2-1b at its published width and all 16 blocks,
+    bf16: one client's local step (``client_delta``, K = 1) of one
+    4,096-token sequence with the blocks recomputed (remat, the default),
+    its loss, ms and peak, and its gradient's peak alone; (b) the same step
+    at 1,024 tokens with and without remat: the loss bit for bit, the
+    delta's cosine, both peaks and the time ratio (timed in turns); (c)
+    the host's dry run of (a) on ``meta`` (``remat_dry``) against the
+    card's peaks, and the figure without remat, which (a) does not run.
+    No TPU kernel is on this path: the launches are printed."""
+    counts = kernel_counts()
+    for c in counts:
+        c.n = 0
+    t0 = time.perf_counter()
+    model = REMAT_MODEL
+    print(f"== phase 17a: {model.name} at full width ({model.num_layers} blocks, "
+          f"{model.dtype}), one client's local step of one {REMAT_TOKENS:,}-token "
+          f"sequence, each block recomputed in the backward ==")
+    params = init_params(model, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    d = sum(p.numel() for p in params.values())
+    mb = remat_batch(REMAT_TOKENS)
+    remat_step(params, mb, True)                            # warm-up
+    (delta, loss), ms, peak = timed_peak(lambda: remat_step(params, mb, True))
+    finite = all(bool(torch.isfinite(v).all()) for v in delta.values())
+    shapes = all(delta[k].shape == p.shape for k, p in params.items())
+    del delta
+    grads, grad_ms, grad_peak = timed_peak(lambda: remat_grad(params, mb, True))
+    del grads                                   # not held through 17b
+    flops = dry["step remat"]["counts"]["flops"]
+    print(f"17a: d = {d:,}; loss {float(loss):.5f}; the step {ms:.1f} ms after a warm-up "
+          f"(CUDA events; {flops / ms / 1e9:.1f} TFLOP/s of its {flops:.4e} counted "
+          f"FLOPs), peak {peak:.2f} GiB; the gradient alone {grad_ms:.1f} ms, peak "
+          f"{grad_peak:.2f} GiB")
+    check(math.isfinite(float(loss)) and finite and shapes,
+          f"17a: loss {float(loss)}, delta finite {finite}, shapes {shapes}")
+    print(f"== phase 17b: the same step at {REMAT_PAIR_TOKENS:,} tokens, with remat "
+          f"against without ==")
+    mb = remat_batch(REMAT_PAIR_TOKENS)
+    out = {r: remat_step(params, mb, r) for r in (False, True)}
+    (d0, l0), (d1, l1) = out[False], out[True]
+    cos = tree_cosine(d1, d0)
+    diff = max(float((d1[k] - d0[k]).abs().max()) for k in d0)
+    same = torch.equal(l0, l1)
+    del out, d0, d1
+    times, peaks, grad_peaks = {False: [], True: []}, {}, {}
+    for r in REMAT_TURNS:
+        out, t, pk = timed_peak(lambda: remat_step(params, mb, r))
+        del out                                 # not held through the next run
+        times[r].append(t)
+        peaks[r] = max(peaks.get(r, 0.0), pk)
+    for r in (False, True):
+        grad_peaks[r] = timed_peak(lambda: remat_grad(params, mb, r))[2]
+    ms0, ms1 = statistics.median(times[False]), statistics.median(times[True])
+    print(f"17b: loss {float(l1):.6f} with remat, {float(l0):.6f} without (bit for bit: "
+          f"{same}); delta cosine {cos:.7f}, max abs diff {diff:.3e}; the step "
+          f"{ms1:.1f} ms with remat, {ms0:.1f} without (medians of {len(times[True])} "
+          f"runs each, in turns; ratio {ms1 / ms0:.3f}; the runs "
+          f"{[round(t, 1) for t in times[True]]} and "
+          f"{[round(t, 1) for t in times[False]]}); peaks {peaks[True]:.2f} and "
+          f"{peaks[False]:.2f} GiB, the gradient alone {grad_peaks[True]:.2f} and "
+          f"{grad_peaks[False]:.2f} GiB")
+    check(same, f"17b: the loss differs with remat: {float(l1)!r} against {float(l0)!r}")
+    check(cos >= REMAT_MIN_COS, f"17b: delta cosine {cos} below {REMAT_MIN_COS}")
+    del params
+    torch.cuda.empty_cache()
+    print(f"== phase 17c: the dry run of 17a ({model.name}, {REMAT_TOKENS:,} tokens, "
+          f"one process, meta tensors on the host) against the card ==")
+    for what, card in (("step", peak), ("grad", grad_peak)):
+        r = dry[f"{what} remat"]
+        mem = r["counts"]["memory"]
+        ratio = mem["peak_bytes"] / 2**30 / card
+        print(f"dry run 17a {what}: {r['seconds']:.1f} s to trace; arguments "
+              f"{mem['argument_bytes'] / 2**30:.2f} GiB, outputs "
+              f"{mem['output_bytes'] / 2**30:.2f}, temporaries "
+              f"{mem['temp_bytes'] / 2**30:.2f}, peak {mem['peak_bytes'] / 2**30:.2f} GiB "
+              f"against the card's {card:.2f} (ratio {ratio:.3f})")
+        check(1 / DRYRUN_PEAK_FACTOR <= ratio <= DRYRUN_PEAK_FACTOR,
+              f"dry run 17a {what}: peak ratio {ratio:.3f} outside {DRYRUN_PEAK_FACTOR}x")
+        mem0 = dry[f"{what} no remat"]["counts"]["memory"]
+        print(f"dry run 17a {what} without remat (not run on the card): peak "
+              f"{mem0['peak_bytes'] / 2**30:.2f} GiB, temporaries "
+              f"{mem0['temp_bytes'] / 2**30:.2f}; FLOPs "
+              f"{dry[f'{what} no remat']['counts']['flops']:.4e} against "
+              f"{r['counts']['flops']:.4e} with remat")
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s; the remat path launched "
+          f"{sum(c.n for c in counts)} of the TPU kernels' counterparts (it reaches "
+          f"none, as in the reference)")
+
+
 def print_cs_launches(name: str, n: dict[str, int]) -> None:
     print(f"{name}: countsketch route called {n['countsketch']} times, "
           f"{n['countsketch_device']} device launches (kernels and memsets), "
@@ -4595,6 +4783,9 @@ def run_phases(laps: Laps, dry: subprocess.Popen, dry_out: str) -> int:
     torch.cuda.empty_cache()
     phase_part_heads(measured["part_smoke"], dry_got)
     laps.lap("16")
+    torch.cuda.empty_cache()
+    phase_remat(dry_got["17a"])
+    laps.lap("17")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
         check(set(e) == KERNEL_KEYS, f"{e['name']}: keys {sorted(e)}")

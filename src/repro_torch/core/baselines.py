@@ -74,6 +74,7 @@ class BaselineConfig:
     client_lr: float = 0.1
     local_steps: int = 1
     server: AdaConfig = AdaConfig(name="sgd", lr=1.0)
+    remat_local: bool = True        # as SAFLConfig's: no effect on values or memory
     # compression knobs
     topk_ratio: float = 0.01        # fraction of coords kept (topk/randk)
     sketch: SketchConfig = SketchConfig(kind="countsketch", ratio=0.01)
@@ -84,7 +85,8 @@ class BaselineConfig:
 
     def _safl(self) -> SAFLConfig:
         return SAFLConfig(client_lr=self.client_lr,
-                          local_steps=self.local_steps)
+                          local_steps=self.local_steps,
+                          remat_local=self.remat_local)
 
 
 def _f32(x: float) -> float:

@@ -42,7 +42,13 @@ def _ravel(params: Tree) -> tuple[torch.Tensor, Callable[[torch.Tensor], dict]]:
 
 def make_hvp(loss_fn: Callable, params: Tree, batch: Any):
     """Returns (matvec on flat vectors, dim): v -> H v at ``params``,
-    forward-over-reverse (the jvp of the gradient along v)."""
+    forward-over-reverse (the jvp of the gradient along v).
+
+    ``loss_fn`` must not recompute blocks: build it with the model's
+    ``remat=False``.  ``torch.func``'s transforms refuse the saved-tensor
+    hooks of ``torch.utils.checkpoint``, so the HVP keeps every activation
+    where the reference's (``loss_fn`` at its default ``remat=True``)
+    recomputes them; the values are the same."""
     flat0, unravel = _ravel(params)
     grad = torch.func.grad(lambda flat: loss_fn(unravel(flat), batch))
 

@@ -45,7 +45,10 @@ class SAFLConfig:
     server: AdaConfig = AdaConfig()
     client_lr: float = 0.1          # eta
     local_steps: int = 1            # K
-    remat_local: bool = True        # no effect here: recomputation changes no value
+    # the reference's jax.checkpoint around the local value_and_grad, which
+    # nothing differentiates: it changes neither values nor memory there
+    # (the blocks' own recompute is the model's ``remat``)
+    remat_local: bool = True
 
 
 def tree_sub(a: Tree, b: Tree) -> dict[str, torch.Tensor]:

@@ -17,7 +17,7 @@ not divide) returns the error as its status and counts as a failure, as
 the reference counts one.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
-        --shape train_4k [--multi-pod] [--step safl|fedopt] [--json out.json]
+        --shape train_4k [--multi-pod] [--step safl|fedopt|client] [--json out.json]
 
 runs on the CPU.  ``--fits`` says which configurations' per-rank bytes
 fit the card's 80 GiB.  ``dry_run`` is the Python entry for a config, a
@@ -174,7 +174,7 @@ def dry_run(model_cfg: ModelConfig, sizes, axes, inputs: dict, *, kind: str,
             topology: str = "cross_device", safl: Optional[SAFLConfig] = None,
             step_kind: str = "safl", serve_layout: str = "default",
             fsdp: Optional[bool] = None, rank: int = 0,
-            max_seq: Optional[int] = None) -> dict:
+            max_seq: Optional[int] = None, remat: bool = True) -> dict:
     """Run one rank's step of ``model_cfg`` on a mesh of ``sizes`` over
     ``axes`` under a fake group, on ``meta`` shards, and count it.
 
@@ -184,7 +184,8 @@ def dry_run(model_cfg: ModelConfig, sizes, axes, inputs: dict, *, kind: str,
     ``"client"`` (``launch.train.client_deltas_sharded`` alone) and (B, ...)
     for ``"prefill"``; ``{"cache", "tokens", "pos"}`` for ``"decode"``.
     ``fsdp`` (serving) defaults to ``topology == "cross_silo"``;
-    ``max_seq`` is a decode cache's length (``rank_inputs``).
+    ``max_seq`` is a decode cache's length (``rank_inputs``); ``remat`` is
+    the client step's (``client_deltas_sharded``: on, as every train step's).
 
     Returns ``{"counts": OpCosts.counts(), "shards": the shapes of the
     rank's ``rank_inputs``, "seconds": the step's wall time}``; the port's
@@ -205,7 +206,8 @@ def dry_run(model_cfg: ModelConfig, sizes, axes, inputs: dict, *, kind: str,
         elif kind == "client":
             pspecs = _mesh_pspecs(model_cfg, topology)[1]
             step = functools.partial(client_deltas_sharded, model_cfg, safl, mesh,
-                                     topology, eta=_f32(safl.client_lr), pspecs=pspecs)
+                                     topology, eta=_f32(safl.client_lr), pspecs=pspecs,
+                                     remat=remat)
             args = (a["params"], a["rows"])
         elif kind == "prefill":
             B = next(iter(inputs["batch"].values())).shape[0]
@@ -273,7 +275,8 @@ def lower_one(arch: str, shape: str, *, multi_pod: bool, step_kind: str,
             steps = sh.seq_len * sum(m == "mamba" for m, _ in cfg.layer_kinds())
             return None, (f"SKIP(cuts; the Mamba recurrence's {steps:,} Python "
                           f"steps not traced: --long-scans)")
-        run = dry_run(cfg, layout.sizes, layout.axis_names, inputs, kind=sh.kind,
+        kind = "client" if sh.kind == "train" and step_kind == "client" else sh.kind
+        run = dry_run(cfg, layout.sizes, layout.axis_names, inputs, kind=kind,
                       topology=topology, safl=safl, step_kind=step_kind,
                       serve_layout=serve_layout, rank=rank, max_seq=sh.seq_len)
     except (ValueError, NotImplementedError) as e:
@@ -309,7 +312,9 @@ def main(argv=None):
     ap.add_argument("--shape", default="all")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
-    ap.add_argument("--step", default="safl", choices=["safl", "fedopt"])
+    ap.add_argument("--step", default="safl", choices=["safl", "fedopt", "client"],
+                    help="a train shape's step: the SAFL or FedOPT round, or the "
+                         "client step alone (client_deltas_sharded on the rank's rows)")
     ap.add_argument("--local-steps", type=int, default=1)
     ap.add_argument("--ratio", type=float, default=1e-3)
     ap.add_argument("--sketch", default="countsketch")

@@ -671,19 +671,22 @@ def shard_rows(par: parallel.Par, batch: Tree, dim: int) -> dict:
     return local_shard(par.mesh, batch, {k: spec for k in batch})
 
 
-def sharded_value_and_grad(par: parallel.Par, params: Tree, batch: Tree):
+def sharded_value_and_grad(par: parallel.Par, params: Tree, batch: Tree, *,
+                           remat: bool = True):
     """``parallel.loss_fn``'s value and gradients on the rank's shards and
-    rows: (the client's loss, the same on every rank; the gradients of the
-    rank's shards, each summed over the batch axes)."""
+    rows (each block recomputed in the backward under ``remat``): (the
+    client's loss, the same on every rank; the gradients of the rank's
+    shards, each summed over the batch axes)."""
     names = list(params)
     leaves = [params[n].detach().requires_grad_(True) for n in names]
-    loss, client = parallel.loss_fn(par, dict(zip(names, leaves)), batch)
+    loss, client = parallel.loss_fn(par, dict(zip(names, leaves)), batch, remat=remat)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return client, dict(zip(names, _sum_over_batch(par, names, grads)))
 
 
 def _client_delta_sharded(cfg: SAFLConfig, par: parallel.Par, params: Tree,
-                          microbatches, eta: float) -> tuple[dict, torch.Tensor]:
+                          microbatches, eta: float,
+                          remat: bool = True) -> tuple[dict, torch.Tensor]:
     """``core.safl.client_delta`` on the rank's shards and rows: K local SGD
     steps of ``sharded_value_and_grad``; returns (the shard's x_0 - x_K,
     the client's mean loss)."""
@@ -691,7 +694,7 @@ def _client_delta_sharded(cfg: SAFLConfig, par: parallel.Par, params: Tree,
     losses = []
     for k in range(next(iter(microbatches.values())).shape[0]):
         loss, grads = sharded_value_and_grad(
-            par, p, {key: v[k] for key, v in microbatches.items()})
+            par, p, {key: v[k] for key, v in microbatches.items()}, remat=remat)
         with torch.no_grad():
             p = {n: x if grads[n] is None else
                  (x.to(torch.float32) - eta * grads[n].to(torch.float32)).to(x.dtype)
@@ -703,20 +706,21 @@ def _client_delta_sharded(cfg: SAFLConfig, par: parallel.Par, params: Tree,
 
 def client_deltas_sharded(model_cfg: ModelConfig, safl_cfg: SAFLConfig, mesh,
                           topology: str, params: Tree, batch, eta: float,
-                          pspecs) -> tuple[dict, torch.Tensor]:
+                          pspecs, *, remat: bool = True) -> tuple[dict, torch.Tensor]:
     """This rank's clients' local training on its own shards
     (``models.parallel.loss_fn`` under ``train_par``): K local SGD steps
     of each of the rank's clients, in lockstep with its client group, on
     the rank's rows of each microbatch; no weight is gathered whole.  The
-    delta of a leaf is the rank's shard itself.  Returns (deltas (G_loc,
-    *local_shard), losses (G_loc,): each client's loss, the same on every
-    rank of its group)."""
+    delta of a leaf is the rank's shard itself.  ``remat`` (the
+    reference's default, on) recomputes each block in the backward.
+    Returns (deltas (G_loc, *local_shard), losses (G_loc,): each client's
+    loss, the same on every rank of its group)."""
     par = train_par(model_cfg, mesh, topology, pspecs)
     batch = shard_rows(par, batch, 2)
     deltas, losses = [], []
     for c in range(_rows_of(batch)):
         d, l = _client_delta_sharded(safl_cfg, par, params,
-                                     {k: v[c] for k, v in batch.items()}, eta)
+                                     {k: v[c] for k, v in batch.items()}, eta, remat)
         deltas.append(d)
         losses.append(l)
     return ({k: torch.stack([d[k] for d in deltas]) for k in params},
@@ -1155,9 +1159,9 @@ def _meta_cache(model_cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
 def make_prefill_step(model_cfg: ModelConfig, mesh=None, *, fsdp: bool = False,
                       batch: Optional[int] = None):
-    """The prefill step: ``forward`` (the reference's with ``remat=False``;
-    the port's has no remat), then the last token's logits through the
-    tied or untied head, (B, padded vocab).
+    """The prefill step: ``forward`` with ``remat=False``, as the
+    reference's (nothing is differentiated), then the last token's logits
+    through the tied or untied head, (B, padded vocab).
 
     With a live ``mesh`` (``batch``: the global batch size), the step
     ``step(local_params, local_batch)`` runs ``models.parallel.forward`` on
@@ -1167,7 +1171,7 @@ def make_prefill_step(model_cfg: ModelConfig, mesh=None, *, fsdp: bool = False,
     step's ``par`` holds its layout (``par.pspecs`` for ``local_shard``)."""
     if mesh is None:
         def step(params, batch):
-            h, _ = forward(model_cfg, params, batch)
+            h, _ = forward(model_cfg, params, batch, remat=False)
             head = (params["embed"].T if model_cfg.tie_embeddings
                     else params["lm_head"])
             return h[:, -1] @ head                  # (B, V) last-token logits

@@ -25,6 +25,7 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -248,14 +249,35 @@ def _apply_block(cfg: ModelConfig, pattern, blk: Params, x: torch.Tensor,
     return x, aux
 
 
+def remat_block(remat: bool, fn, *args, **kw):
+    """``fn(*args, **kw)``, one block; with ``remat`` and grad on, under
+    ``torch.utils.checkpoint``: the reference's ``jax.checkpoint`` around
+    each block, whose default policy keeps nothing inside it.  The backward
+    keeps the block's arguments, runs the block again where it first needs
+    an activation, and stops at the last one it needs (PyTorch's early
+    stop; XLA drops the recompute no gradient reads).  Non-reentrant,
+    since the weights reach the block inside dicts and ``Blocks``, whose
+    gradients the reentrant form would drop; no RNG state, since no block
+    draws random numbers.  Under ``no_grad`` the block runs plainly.  A
+    ``torch.func`` transform cannot run a checkpointed block (PyTorch
+    refuses its saved-tensor hooks): its callers pass ``remat=False``."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          **kw)
+    return fn(*args, **kw)
+
+
 def _run_blocks(cfg: ModelConfig, pattern, params: Params, prefix: str,
-                x: torch.Tensor, positions: torch.Tensor, **kw):
-    """Every block of the stack under ``prefix``, in depth order."""
+                x: torch.Tensor, positions: torch.Tensor, *, remat: bool = True,
+                **kw):
+    """Every block of the stack under ``prefix``, in depth order, each
+    recomputed in the backward under ``remat`` (``remat_block``)."""
     stack = _sub(params, prefix)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(next(iter(stack.values())).shape[0]):
-        x, a = _apply_block(cfg, pattern, {k: v[layer] for k, v in stack.items()},
-                            x, positions, **kw)
+        x, a = remat_block(remat, _apply_block, cfg, pattern,
+                           {k: v[layer] for k, v in stack.items()}, x, positions,
+                           **kw)
         aux = aux + a
     return x, aux
 
@@ -275,12 +297,14 @@ def _positions_for(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
-def forward(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor],
+            *, remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (hidden (B, S, D), aux_loss).  A
     vision model's ``patch_embeds`` go in front of the tokens; an audio
     model's ``audio_embeds`` run through the bidirectional encoder, whose
-    output the decoder blocks cross-attend to."""
+    output the decoder blocks cross-attend to.  ``remat`` (the reference's
+    default, on) recomputes every block of the encoder, the leading dense
+    layers and the main stack in the backward (``remat_block``)."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     dev = tokens.device
@@ -300,14 +324,16 @@ def forward(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]
         e = e + L.sinusoidal_embed(torch.arange(Te, device=dev),
                                    cfg.d_model)[None].to(e.dtype)
         e, _ = _run_blocks(cfg, DENSE, params, "enc_layers/", e,
-                           _positions_for(cfg, B, Te, dev), bidirectional=True)
+                           _positions_for(cfg, B, Te, dev), bidirectional=True,
+                           remat=remat)
         enc_out = L.apply_norm(cfg, _sub(params, "enc_norm/"), e)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     if cfg.first_dense_layers:
-        x, a = _run_blocks(cfg, DENSE, params, "dense_layers/", x, positions)
+        x, a = _run_blocks(cfg, DENSE, params, "dense_layers/", x, positions,
+                           remat=remat)
         aux = aux + a
     x, a = _run_blocks(cfg, pattern, params, "layers/", x, positions,
-                       enc_out=enc_out)
+                       enc_out=enc_out, remat=remat)
     aux = aux + a
     return L.apply_norm(cfg, _sub(params, "final_norm/"), x), aux
 
@@ -338,14 +364,15 @@ def _ce_loss_chunked(cfg: ModelConfig, params: Params, h: torch.Tensor,
 
 
 def loss_fn(cfg: ModelConfig, params: Params,
-            batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+            batch: Mapping[str, torch.Tensor], *, remat: bool = True) -> torch.Tensor:
     """Next-token LM loss over the text positions (a VLM's patches carry
     none; the last position has no label), plus DeepSeek's MTP term (the
     token two ahead through ``mtp_head``, weighted ``mtp_weight``) and the
-    MoE aux loss."""
+    MoE aux loss.  ``remat`` goes to ``forward``: the same value, and the
+    same gradients bit for bit, from less memory."""
     tokens = batch["tokens"]
     B, St = tokens.shape
-    h, aux = forward(cfg, params, batch)
+    h, aux = forward(cfg, params, batch, remat=remat)
     P = cfg.num_frontend_tokens if cfg.frontend == "vision" else 0
     ht = h[:, P:]
     labels = F.pad(tokens[:, 1:], (0, 1))

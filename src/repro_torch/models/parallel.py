@@ -71,7 +71,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import DENSE, LOSS_CHUNK, _positions_for
+from repro_torch.models.model import DENSE, LOSS_CHUNK, _positions_for, remat_block
 from repro_torch.models.sharding import FSDP, _entry_axes
 
 
@@ -896,18 +896,25 @@ def _apply_block(par: Par, pattern, blk: Blocks, x: torch.Tensor,
 
 
 def _run_blocks(par: Par, pattern, P: Blocks, prefix: str, x: torch.Tensor,
-                positions: torch.Tensor, **kw):
-    """Every block of the stack under ``prefix``: (x, the summed aux loss)."""
+                positions: torch.Tensor, *, remat: bool = True, **kw):
+    """Every block of the stack under ``prefix``: (x, the summed aux loss).
+    Under ``remat`` each block is recomputed in the backward
+    (``model.remat_block``), its collectives with it, on every rank in the
+    same order: the forward sums, the part-head gathers, FSDP's gathers of
+    the block's weights (``Blocks`` keeps none) and the MoE group's calls,
+    up to the block's last saved activation."""
     stack = P.sub(prefix)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(stack.depth()):
-        x, a = _apply_block(par, pattern, stack.layer(layer), x, positions, **kw)
+        x, a = remat_block(remat, _apply_block, par, pattern, stack.layer(layer), x,
+                           positions, **kw)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
-def _encode(par: Par, P: Blocks, audio: torch.Tensor) -> torch.Tensor:
+def _encode(par: Par, P: Blocks, audio: torch.Tensor, *,
+            remat: bool = True) -> torch.Tensor:
     """The audio encoder's normed output (replicated over the group)."""
     cfg = par.cfg
     B, Te, _ = audio.shape
@@ -915,15 +922,15 @@ def _encode(par: Par, P: Blocks, audio: torch.Tensor) -> torch.Tensor:
     e = audio + L.sinusoidal_embed(torch.arange(Te, device=dev),
                                    cfg.d_model)[None].to(audio.dtype)
     e, _ = _run_blocks(par, DENSE, P, "enc_layers/", e, _positions_for(cfg, B, Te, dev),
-                       bidirectional=True)
+                       bidirectional=True, remat=remat)
     return L.apply_norm(cfg, P.sub("enc_norm/"), e)
 
 
 def _forward(par: Par, P: Blocks, batch: Mapping[str, torch.Tensor], *,
-             aux: bool = False):
+             aux: bool = False, remat: bool = True):
     """``model.forward`` on the rank's blocks and its rows of the batch:
     (the hidden states (B_loc, S, D), replicated over the group; the aux
-    loss)."""
+    loss).  ``remat``: ``model.forward``'s."""
     cfg = par.cfg
     tokens = batch["tokens"]
     B = tokens.shape[0]
@@ -939,13 +946,14 @@ def _forward(par: Par, P: Blocks, batch: Mapping[str, torch.Tensor], *,
                                    cfg.d_model)[None].to(x.dtype)
     enc_out = None
     if cfg.encoder_layers:
-        enc_out = _encode(par, P, batch["audio_embeds"].to(x.dtype))
+        enc_out = _encode(par, P, batch["audio_embeds"].to(x.dtype), remat=remat)
     total = torch.zeros((), dtype=torch.float32, device=dev)
     if cfg.first_dense_layers:
-        x, a = _run_blocks(par, DENSE, P, "dense_layers/", x, positions, aux=aux)
+        x, a = _run_blocks(par, DENSE, P, "dense_layers/", x, positions, aux=aux,
+                           remat=remat)
         total = total + a
     x, a = _run_blocks(par, pattern, P, "layers/", x, positions, enc_out=enc_out,
-                       aux=aux)
+                       aux=aux, remat=remat)
     return L.apply_norm(cfg, P.sub("final_norm/"), x), total + a
 
 
@@ -1032,7 +1040,8 @@ def _count(par: Par, mask: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(par: Par, params: Mapping[str, torch.Tensor],
-            batch: Mapping[str, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+            batch: Mapping[str, torch.Tensor], *,
+            remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """``model.loss_fn`` on the rank's blocks and its rows of a client's
     batch (the batch cut over ``par.batch_axes``): the next-token loss over
     the padded vocabulary through the vocab-parallel cross-entropy
@@ -1044,7 +1053,8 @@ def loss_fn(par: Par, params: Mapping[str, torch.Tensor],
     over the batch axes are the client loss's gradients.  ``client_loss``
     (detached) is the client's loss, the same on every rank: the rank's
     cross-entropy terms summed over the batch axes (one scalar
-    ``all_reduce``), plus the aux loss once."""
+    ``all_reduce``), plus the aux loss once.  ``remat`` (the reference's
+    default, on) recomputes each block in the backward (``_run_blocks``)."""
     cfg = par.cfg
     if par.flat:
         raise ValueError("the flat layout serves only (as the reference's "
@@ -1052,7 +1062,7 @@ def loss_fn(par: Par, params: Mapping[str, torch.Tensor],
     P = Blocks(par, params, par.pspecs)
     tokens = batch["tokens"]
     B, St = tokens.shape
-    h, aux = _forward(par, P, batch, aux=bool(cfg.num_experts))
+    h, aux = _forward(par, P, batch, aux=bool(cfg.num_experts), remat=remat)
     Pf = cfg.num_frontend_tokens if cfg.frontend == "vision" else 0
     ht = _copy(par, h[:, Pf:])                  # the hidden state that feeds the head
     labels = F.pad(tokens[:, 1:], (0, 1))

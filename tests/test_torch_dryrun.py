@@ -306,11 +306,14 @@ def _mini_main(out_path: str) -> None:
     # a part-head step, dry and live: the client step on (data 1, model 4)
     from repro_torch.launch.mesh import spawn
     from test_torch_part_heads import live_client_counts
-    one = D.dry_run(cfg, (1, 4), axes, {"batch": {"tokens": meta((1, 1, 4, 16))}},
-                    kind="client")["counts"]
     live = spawn(live_client_counts, (1, 4), axes, "llama3_2_1b", {},
                  tokens[:1, :1, :, :16].numpy(), device="cpu", timeout=300)
-    out["part_heads"] = {"dry": one, "live": live}
+    out["part_heads"] = {
+        str(remat): {"dry": D.dry_run(cfg, (1, 4), axes,
+                                      {"batch": {"tokens": meta((1, 1, 4, 16))}},
+                                      kind="client", remat=remat)["counts"],
+                     "live": live[remat]}
+        for remat in (False, True)}
     with open(out_path, "w") as f:
         json.dump(out, f)
 
@@ -358,13 +361,16 @@ def test_mini_dryrun_flops_sum_to_the_one_process_step(mini):
         mini["flops"], mini["one_process_flops"], mini["one_process_by_op"])
 
 
-def test_mini_dryrun_part_head_step_counts_the_live_steps(mini):
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+def test_mini_dryrun_part_head_step_counts_the_live_steps(mini, remat):
     """The dry run of a part-head client step counts the gathers (and every
     other collective), their bytes and the FLOPs of the same step run live
-    on four gloo ranks."""
-    dry, live = mini["part_heads"]["dry"], mini["part_heads"]["live"]
-    # llama3.2-1b SMOKE: 2 layers, each kv gather a reduce-scatter backward
-    assert dry["collective_calls"]["all_gather"] == 2, dry["collective_calls"]
+    on four gloo ranks; with and without the blocks' recompute."""
+    dry, live = mini["part_heads"][str(remat)]["dry"], mini["part_heads"][str(remat)]["live"]
+    # llama3.2-1b SMOKE: 2 layers, each kv gather a reduce-scatter backward;
+    # the recompute gathers each layer's k and v again
+    gathers = 4 if remat else 2
+    assert dry["collective_calls"]["all_gather"] == gathers, dry["collective_calls"]
     assert dry["collective_calls"]["reduce_scatter"] == 2, dry["collective_calls"]
     assert dry["collective_calls"] == live["collective_calls"]
     assert dry["collective_bytes"] == live["collective_bytes"]

@@ -63,7 +63,7 @@ def bench():
     tparams = params_from_numpy(flat(rparams), "cpu")
     tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     rloss = lambda p, b: r_loss(rm, p, b)
-    tloss = lambda p, b: t_loss(tm, p, b)
+    tloss = lambda p, b: t_loss(tm, p, b, remat=False)   # torch.func: no checkpoint
     return dict(r=(rloss, rparams, batch), t=(tloss, tparams, tbatch),
                 r_hvp=r_make_hvp(rloss, rparams, batch),
                 t_hvp=make_hvp(tloss, tparams, tbatch))

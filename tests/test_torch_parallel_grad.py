@@ -257,10 +257,10 @@ def whole_leaf_pin(mesh, topology: str, cfg, ins: dict) -> dict:
     orig_vg, orig_get, orig_gt = (T.sharded_value_and_grad,
                                   parallel.Blocks.__getitem__, sharding.gather_tree)
 
-    def value_and_grad(par, params, b):
+    def value_and_grad(par, params, b, **kw):
         views.clear()
         views.update({p.untyped_storage().data_ptr(): k for k, p in params.items()})
-        return orig_vg(par, params, b)
+        return orig_vg(par, params, b, **kw)
 
     def getitem(self, path):
         x = self.tensors[path]

@@ -106,16 +106,17 @@ def prefill(mesh, cfg, ins: dict, fsdp: bool) -> dict:
     return {"logits": full.numpy(), "calls": oc.counts()["collective_calls"]}
 
 
-def grads(mesh, cfg, ins: dict) -> dict:
+def grads(mesh, cfg, ins: dict, remat: bool = True) -> dict:
     """The sharded loss and gradients in ``cross_device`` (gathered whole,
-    an unused leaf's as zeros) and the step's collective calls."""
+    an unused leaf's as zeros) and the step's collective calls, each block
+    recomputed in the backward under ``remat``."""
     _, pspecs = T._mesh_pspecs(cfg, "cross_device")
     par = T.train_par(cfg, mesh, "cross_device", pspecs)
     lp = local_shard(mesh, params_from_numpy(ins["weights"], "cpu"), pspecs)
     batch = {k: torch.from_numpy(v) for k, v in ins["batch"].items()}
     batch["tokens"] = batch["tokens"].long()
     with OpCosts() as oc:
-        loss, g = T.sharded_value_and_grad(par, lp, batch)
+        loss, g = T.sharded_value_and_grad(par, lp, batch, remat=remat)
     g = {k: torch.zeros_like(lp[k]) if v is None else v for k, v in g.items()}
     return {"loss": float(loss), "calls": oc.counts()["collective_calls"],
             "grads": {k: v.numpy() for k, v in gather_tree(mesh, g, pspecs).items()}}
@@ -129,15 +130,16 @@ def rank_cases(mesh, cases: dict) -> dict:
         cfg = case_config(arch, overrides)
         out[name] = {"default": prefill(mesh, cfg, serve_ins, False),
                      "fsdp": prefill(mesh, cfg, serve_ins, True),
-                     "grad": grads(mesh, cfg, grad_ins)}
+                     "grad": grads(mesh, cfg, grad_ins),
+                     "grad_no_remat": grads(mesh, cfg, grad_ins, remat=False)}
     return out
 
 
 def live_client_counts(mesh, arch: str, overrides: dict, tokens: np.ndarray) -> dict:
     """``client_deltas_sharded`` (one local step of one client) of a
-    SMOKE config on the rank's shards, counted by ``OpCosts``: the live
-    step whose counts ``tests/test_torch_dryrun.py`` holds its dry run to.
-    Returns rank 0's counts."""
+    SMOKE config on the rank's shards, counted by ``OpCosts``, without and
+    with remat: the live steps whose counts ``tests/test_torch_dryrun.py``
+    holds its dry run to.  Returns rank 0's counts by ``remat``."""
     from repro_torch.core.safl import _f32
     from repro_torch.launch.dryrun import build_safl_cfg
     from repro_torch.models import init_params
@@ -148,10 +150,13 @@ def live_client_counts(mesh, arch: str, overrides: dict, tokens: np.ndarray) -> 
     lp = local_shard(mesh, init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
                      pspecs)
     rows = {"tokens": torch.from_numpy(tokens).long()}
-    with OpCosts() as oc:
-        T.client_deltas_sharded(cfg, safl, mesh, "cross_device", lp, rows,
-                                _f32(safl.client_lr), pspecs)
-    return oc.counts()
+    out = {}
+    for remat in (False, True):
+        with OpCosts() as oc:
+            T.client_deltas_sharded(cfg, safl, mesh, "cross_device", lp, rows,
+                                    _f32(safl.client_lr), pspecs, remat=remat)
+        out[remat] = oc.counts()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -192,11 +197,14 @@ def test_part_head_grads_match_reference(results, case):
         np.testing.assert_allclose(got["grads"][k], w, err_msg=k, **TOL)
 
 
-def test_part_head_collectives_within_budget(results):
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+def test_part_head_collectives_within_budget(results, remat):
     """One gather an attention call where only the kv heads split, two
     where the query heads split (q, k and v in one; the output back to
     ``wo``'s rows), each a reduce-scatter in the backward; on (data 1,
-    model 4) nothing else gathers or reduce-scatters."""
+    model 4) nothing else gathers or reduce-scatters.  Under ``remat`` the
+    backward recomputes each block, its gathers with it: the forward's
+    gathers twice, the reduce-scatters once."""
     _, port = results
     n = GRID[0][1]
     for name, arch, over in CASES:
@@ -205,8 +213,9 @@ def test_part_head_collectives_within_budget(results):
         for layout in ("default", "fsdp"):
             calls = port[name][layout]["calls"]
             assert (calls["all_gather"], calls["reduce_scatter"]) == (want, 0), (name, calls)
-        calls = port[name]["grad"]["calls"]
-        assert (calls["all_gather"], calls["reduce_scatter"]) == (want, want), (name, calls)
+        calls = port[name]["grad" if remat else "grad_no_remat"]["calls"]
+        gathers = 2 * want if remat else want
+        assert (calls["all_gather"], calls["reduce_scatter"]) == (gathers, want), (name, calls)
 
 
 def test_head_plan_covers_every_head_once():
